@@ -1,0 +1,98 @@
+"""Joint-space PD controllers on batched tensors.
+
+Port of ``maniskill_tpu/agents/controllers/base.py`` for PickCube's control
+mode: ``PDJointPosControllerConfig`` and ``JointController`` in position
+mode, with delta targets and the mimic (one action, all joints) gripper.
+Velocity, pos-vel, passive, base-velocity, torque and end-effector
+controllers are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+
+def clip_and_scale_action(action, low, high):
+    """[-1, 1] -> [low, high]."""
+    action = torch.clamp(action, -1.0, 1.0)
+    return 0.5 * (high + low) + 0.5 * (high - low) * action
+
+
+@dataclass
+class ControllerState:
+    """Drive targets of the controlled joints, (K, nj) each."""
+
+    target_qpos: torch.Tensor
+    target_qvel: torch.Tensor
+
+
+@dataclass
+class ControllerConfig:
+    joint_names: Sequence[str] = ()
+    joint_indices: np.ndarray = None  # resolved by the agent layer
+
+
+@dataclass
+class PDJointPosControllerConfig(ControllerConfig):
+    lower: Union[None, float, Sequence[float]] = None
+    upper: Union[None, float, Sequence[float]] = None
+    stiffness: Union[float, Sequence[float]] = 100.0
+    damping: Union[float, Sequence[float]] = 10.0
+    force_limit: Union[float, Sequence[float]] = 1e10
+    use_delta: bool = False  # targets are qpos + action
+    mimic: bool = False  # one action drives all joints
+
+
+class JointController:
+    """Per-joint PD position controller with device-resident constants."""
+
+    def __init__(self, config: PDJointPosControllerConfig, qlim: np.ndarray,
+                 device):
+        if not isinstance(config, PDJointPosControllerConfig):
+            raise NotImplementedError(f"controller {type(config).__name__}")
+        idx = np.asarray(config.joint_indices, dtype=np.int64)
+        self.config = config
+        self.joint_indices = idx
+        self.nj = len(idx)
+        lo = qlim[idx, 0].copy()
+        hi = qlim[idx, 1].copy()
+        if config.lower is not None:
+            lo[:] = config.lower
+        if config.upper is not None:
+            hi[:] = config.upper
+        self.use_delta = config.use_delta
+        self.mimic = config.mimic
+        if self.mimic:
+            if not (np.allclose(lo, lo[0]) and np.allclose(hi, hi[0])):
+                raise ValueError("mimic joints need one shared action range")
+            self.action_dim = 1
+        else:
+            self.action_dim = self.nj
+        self.raw_low = lo.astype(np.float32)
+        self.raw_high = hi.astype(np.float32)
+        self.qlim = qlim[idx].astype(np.float32)
+        self.kp = np.broadcast_to(np.asarray(config.stiffness, np.float32), (self.nj,)).copy()
+        self.kd = np.broadcast_to(np.asarray(config.damping, np.float32), (self.nj,)).copy()
+        self.force_limit = np.broadcast_to(
+            np.asarray(config.force_limit, np.float32), (self.nj,)).copy()
+        n = self.action_dim
+        self._idx = torch.as_tensor(idx, device=device)
+        self._low = torch.as_tensor(self.raw_low[:n], device=device)
+        self._high = torch.as_tensor(self.raw_high[:n], device=device)
+        self._qlo = torch.as_tensor(self.qlim[:, 0], device=device)
+        self._qhi = torch.as_tensor(self.qlim[:, 1], device=device)
+
+    def set_action(self, cstate: ControllerState, qpos: torch.Tensor,
+                   action: torch.Tensor) -> ControllerState:
+        """New drive targets from a (K, action_dim) action in [-1, 1]."""
+        a = clip_and_scale_action(action, self._low, self._high)
+        if self.mimic:
+            a = a.expand(a.shape[:-1] + (self.nj,))
+        q = qpos[..., self._idx]
+        tgt = q + a if self.use_delta else a.expand(q.shape)
+        # clamp targets to joint limits like PhysX drive targets do
+        tgt = torch.maximum(torch.minimum(tgt, self._qhi), self._qlo)
+        return ControllerState(target_qpos=tgt, target_qvel=torch.zeros_like(tgt))
