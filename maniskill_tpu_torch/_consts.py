@@ -18,6 +18,9 @@ def const(owner, key: str, array, device, dtype=None) -> torch.Tensor:
     k = (key, str(torch.device(device)), dtype)
     t = cache.get(k)
     if t is None:
-        t = torch.as_tensor(np.asarray(array), dtype=dtype, device=device)
+        # made outside any torch.func transform: a tensor created inside one
+        # is wrapped for that transform's level and must not outlive it
+        with torch._C._DisableFuncTorch():
+            t = torch.as_tensor(np.asarray(array), dtype=dtype, device=device)
         cache[k] = t
     return t

@@ -5,7 +5,9 @@ numpy arrays keyed by field name (nested for ``EnvState``: ``sim``, ``cmd``,
 ``elapsed_steps``, ``extras``); the caller does the ``jax`` -> numpy step, so
 this module imports no JAX. Fields the port does not model (the convex-hull
 tables, the per-env PRNG key) are ignored on the way in and absent on the
-way out.
+way out. A JAX ``CEMState`` arrives as its mean and sigma; its PRNG key is
+not carried (the port's planners draw with a ``torch.Generator``, and tests
+inject the JAX draws instead).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from .envs.base_env import EnvState
 from .physics.model import DriveCmd, SimState
+from .planners.cem import CEMState
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -46,6 +49,14 @@ def env_state_from_numpy(d: Dict, device="cpu") -> EnvState:
         elapsed_steps=_tensor(d["elapsed_steps"], device).to(torch.int32),
         extras={k: _tensor(v, device) for k, v in d.get("extras", {}).items()},
     )
+
+
+def cem_state_from_numpy(d: Dict, device="cpu", seed: int = 0) -> CEMState:
+    """A JAX ``CEMState`` (mean, sigma) with a fresh generator seeded ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return CEMState(mean=_tensor(d["mean"], device), sigma=_tensor(d["sigma"], device),
+                    generator=gen)
 
 
 def to_numpy(obj):

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel maniskill_tpu/physics/megakernel.py
 // (_build_kernel -> kernel, launched by make_pallas_step_fn). One launch
 // runs n_substeps physics substeps for every env: robot FK, geom world
-// poses, narrowphase (plane_box, box_box_onesided, box_box_corners),
+// poses, narrowphase (plane_box, box_box_onesided, box_box_corners and the
+// free-free box_box),
 // warm-started velocity-level contact forces, the robot mass matrix and
 // bias with implicit drives, free-body terms, the monolithic Cholesky
 // pair solve (split impulse: velocity and position right-hand sides),
@@ -36,11 +37,12 @@
 
 #include <cuda_runtime.h>
 
+#include "cholesky.cuh"
+
 #define NB_MAX 32
 #define NALL_MAX 32
 #define G_MAX 32
 #define F_MAX 4
-#define TRI(i) ((i) * ((i) + 1) / 2)
 
 // Layout of the int table `mi`: this header, then the int tables. The
 // Python wrapper reads these names from this file to build the tables.
@@ -67,7 +69,7 @@ enum Param {
   P_COUNT
 };
 
-enum PairFn { FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS };
+enum PairFn { FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS, FN_BOX_BOX };
 
 enum Kind { KIND_STATIC, KIND_KINEMATIC, KIND_FREE, KIND_ROBOT_LINK };
 
@@ -167,10 +169,21 @@ __device__ __forceinline__ V3 corner_local(V3 half, int c) {
              half.z * ((c & 1) ? 1.0f : -1.0f));
 }
 
+// box face centre f (0..5) in the box frame: +x, -x, +y, -y, +z, -z
+// (shapes._FACE_DIRS)
+__device__ __forceinline__ V3 face_local(V3 half, int f) {
+  const float s = (f & 1) ? -1.0f : 1.0f;
+  const int ax = f >> 1;
+  return mk3(ax == 0 ? s * half.x : 0.0f, ax == 1 ? s * half.y : 0.0f,
+             ax == 2 ? s * half.z : 0.0f);
+}
+
 struct Contact { V3 pos, nrm; float dep; };
 
 // candidate point `c` of one pair (shapes.plane_box / box_box_onesided /
-// box_box_corners); normal from B toward A, depth > 0 when penetrating
+// box_box_corners / box_box); normal from B toward A, depth > 0 when
+// penetrating. box_box: points 0-7 are A's corners and 8-13 A's face
+// centres against B, 14-27 the same of B against A with the normal negated
 __device__ __forceinline__ Contact contact_point(int fn, int ga, int gb, int c,
                                                  const V3* gp, const Q4* gq,
                                                  const V3* gsz) {
@@ -183,10 +196,20 @@ __device__ __forceinline__ Contact contact_point(int fn, int ga, int gb, int c,
     ct.dep = -dot(sub(corner, gp[ga]), n);
     return ct;
   }
-  // corners of box a inside box b; box_box_corners' second half swaps sides
-  bool flip = (fn == FN_BOX_BOX_CORNERS) && (c >= 8);
-  int a = flip ? gb : ga, b = flip ? ga : gb;
-  V3 corner = add(gp[a], qapply(gq[a], corner_local(gsz[a], c & 7)));
+  // a point of box a inside box b; the second half of box_box_corners and
+  // of box_box swaps the sides
+  bool flip;
+  int cl;  // the point's index on its box: corners 0-7, face centres 8-13
+  if (fn == FN_BOX_BOX) {
+    flip = c >= 14;
+    cl = flip ? c - 14 : c;
+  } else {
+    flip = (fn == FN_BOX_BOX_CORNERS) && (c >= 8);
+    cl = c & 7;
+  }
+  const int a = flip ? gb : ga, b = flip ? ga : gb;
+  const V3 local = cl < 8 ? corner_local(gsz[a], cl) : face_local(gsz[a], cl - 8);
+  V3 corner = add(gp[a], qapply(gq[a], local));
   V3 loc = qapply(qconj(gq[b]), sub(corner, gp[b]));
   float sdf;
   V3 nl;
@@ -569,38 +592,11 @@ __global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
     }
 
     // ---------------- Cholesky pair solve (in place, lower packed) ---------
-    for (int jc = 0; jc < n_all; ++jc) {
-      float s0 = A[TRI(jc) + jc];
-      for (int kk = 0; kk < jc; ++kk) s0 -= A[TRI(jc) + kk] * A[TRI(jc) + kk];
-      const float sc = fmaxf(s0, 1e-12f);
-      const float di = rsqrtf(sc);
-      dinv[jc] = di;
-      A[TRI(jc) + jc] = sc * di;
-      for (int i = jc + 1; i < n_all; ++i) {
-        float s2 = A[TRI(i) + jc];
-        for (int kk = 0; kk < jc; ++kk) s2 -= A[TRI(i) + kk] * A[TRI(jc) + kk];
-        A[TRI(i) + jc] = s2 * di;
-      }
-    }
-    // forward (L y = h b) then back (Lᵀ x = y), both right-hand sides
-    for (int i = 0; i < n_all; ++i) {
-      float sv = rv[i] * h, sp = rp[i] * h;
-      for (int kk = 0; kk < i; ++kk) {
-        sv -= A[TRI(i) + kk] * rv[kk];
-        sp -= A[TRI(i) + kk] * rp[kk];
-      }
-      rv[i] = sv * dinv[i];
-      rp[i] = sp * dinv[i];
-    }
-    for (int i = n_all - 1; i >= 0; --i) {
-      float sv = rv[i], sp = rp[i];
-      for (int kk = i + 1; kk < n_all; ++kk) {
-        sv -= A[TRI(kk) + i] * rv[kk];
-        sp -= A[TRI(kk) + i] * rp[kk];
-      }
-      rv[i] = sv * dinv[i];
-      rp[i] = sp * dinv[i];
-    }
+    // one factor, then the velocity and position right-hand sides, each
+    // scaled by h (cholesky.cuh)
+    chol_factor(A, dinv, n_all);
+    chol_solve(A, dinv, rv, n_all, h);
+    chol_solve(A, dinv, rp, n_all, h);
 
     // ---------------- integration ----------------
     for (int j = 0; j < nq; ++j) {

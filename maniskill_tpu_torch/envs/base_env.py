@@ -9,10 +9,12 @@ the sparse reward, other robots and control modes, partial resets,
 state-dict get/set and runtime drive-gain changes.
 
 The physics dispatch takes the CUDA mega-kernel (``physics/megakernel.py``)
-for every batch of a model it supports, with the kernel's plain PyTorch
-version for CPU tensors; ``sim_backend="torch"`` asks for the plain step
-everywhere. On CUDA an unsupported model raises unless the caller asks for
-``sim_backend="torch"``.
+for every batch of a model it supports, through ``KernelStep``: the kernel
+computes the step, and derivatives (forward or reverse mode) come from the
+plain PyTorch step, as the JAX ``custom_jvp`` seam does
+(``envs/base_env.py:495-513``). CPU tensors take the plain step directly;
+``sim_backend="torch"`` asks for the plain step everywhere. On CUDA an
+unsupported model raises unless the caller asks for ``sim_backend="torch"``.
 """
 from __future__ import annotations
 
@@ -91,6 +93,14 @@ class TaskContext:
             return Pose.from_raw(self.state.sim.free_pose[:, i])
         return Pose.from_raw(self.state.sim.kin_pose[:, self.env.model.kin_index[name]])
 
+    def actor_vel(self, name: str) -> torch.Tensor:
+        """(K, 6) [linear, angular] velocity of a free actor; zeros for a
+        kinematic one."""
+        i = self.env.model.free_index.get(name)
+        if i is not None:
+            return self.state.sim.free_vel[:, i]
+        return self.state.sim.qpos.new_zeros(self.state.sim.qpos.shape[0], 6)
+
 
 class BaseEnv:
     """Subclass per task; override ``_load_scene``, ``_initialize_episode``,
@@ -162,6 +172,10 @@ class BaseEnv:
     def _get_obs_extra(self, state: EnvState, ctx: TaskContext, info) -> Dict:
         return {}
 
+    def _update_extras(self, state: EnvState, ctx: TaskContext) -> EnvState:
+        """Per-step task bookkeeping, after physics and before evaluate."""
+        return state
+
     def compute_dense_reward(self, state, action, info, ctx) -> torch.Tensor:
         return torch.zeros(state.sim.qpos.shape[0], device=self.device)
 
@@ -180,7 +194,7 @@ class BaseEnv:
             step = make_step_fn(self.model)
             return lambda sim, cmd: step(sim, cmd, n_steps)
         self.kernel = megakernel.MegaKernel(self.model)
-        return lambda sim, cmd: self.kernel(sim, cmd, n_steps)[0]
+        return lambda sim, cmd: self.kernel.step(sim, cmd, n_steps)
 
     def _initial_sim_state(self, batch: int, gen: torch.Generator) -> SimState:
         state = self.model.initial_state(batch, self.device)
@@ -217,6 +231,7 @@ class BaseEnv:
         state = state.replace(sim=sim, cmd=cmd,
                               elapsed_steps=state.elapsed_steps + 1)
         ctx = TaskContext(self, state)
+        state = self._update_extras(state, ctx)
         return state, ctx, self.evaluate(state, ctx)
 
     def _step(self, state: EnvState, action: torch.Tensor):

@@ -1,1 +1,2 @@
 from . import pick_cube  # noqa: F401
+from . import stack_cube  # noqa: F401

@@ -23,6 +23,47 @@ from ..registration import register_env
 from ..scene_builders import TABLE_HEIGHT, TableSceneBuilder
 
 
+def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
+               gen: torch.Generator) -> torch.Tensor:
+    """``qpos`` with the arm moved so the TCP grasps a 2 cm cube at pose
+    ``cube`` (K, 7) from above: damped least-squares IK puts the TCP on the
+    cube's axis, pointing down, 2-12 mm below its centre (drawn from
+    ``gen``), with the fingers across two faces. The gripper joints are
+    left as they are."""
+    model, spec, dev = env.model, env.model.robot, env.device
+    K = qpos.shape[0]
+    base = const(model, "robot_base_pose", model.robot_base_pose, dev)
+    tcp = spec.frame_of(env.agent.ee_link_name)[0]
+    arm = np.arange(7)
+    qlim = torch.as_tensor(model.robot_qlim, device=dev)
+    # the cube's yaw (reset cubes are yaw-only) folded into [-pi/4, pi/4]:
+    # a quarter turn maps the cube onto itself and keeps the wrist in range
+    yaw = 2.0 * torch.atan2(cube[:, 6], cube[:, 3])
+    yaw = yaw - (math.pi / 2) * torch.round(yaw / (math.pi / 2))
+    ez = torch.zeros(K, 3, device=dev)
+    ez[:, 2] = 1.0
+    down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=dev)  # TCP +z -> world -z
+    q_goal = quat_mul(quat_from_axis_angle(ez, yaw), down.expand(K, 4))
+    dz = -0.012 + 0.01 * torch.rand((K,), generator=gen, device=dev)
+    p_goal = cube[:, :3] + torch.stack(
+        [torch.zeros(K, device=dev), torch.zeros(K, device=dev), dz], dim=-1)
+    qpos = qpos.clone()
+    eye = 1e-4 * torch.eye(6, device=dev)
+    for _ in range(30):  # converges to ~1e-6 m in about 20 steps
+        body_pos, body_quat, axis_w = chain.fk(spec, base, qpos)
+        p, q = chain.frame_pose(spec, base, body_pos, body_quat, env.agent.ee_link_name)
+        q_err = quat_mul(q_goal, quat_conjugate(q))
+        w_err = 2.0 * torch.sign(q_err[:, :1]) * q_err[:, 1:]
+        err = torch.cat([w_err, p_goal - p], dim=-1)
+        J = chain.point_jacobian(spec, body_pos, axis_w, p, tcp, arm,
+                                 model.ancestor_mask)  # (K, 6, 7)
+        dq = J.transpose(1, 2) @ torch.linalg.solve(
+            J @ J.transpose(1, 2) + eye, err[..., None])
+        qpos[:, :7] = torch.clamp(qpos[:, :7] + dq[..., 0].clamp(-0.2, 0.2),
+                                  qlim[:7, 0], qlim[:7, 1])
+    return qpos
+
+
 @register_env("PickCube-v1", max_episode_steps=50)
 class PickCubeEnv(BaseEnv):
     DEFAULT_ROBOT = "panda"
@@ -87,44 +128,14 @@ class PickCubeEnv(BaseEnv):
         all three pair functions (finger-cube, finger-table, cube-table,
         cube-floor) carry force, with friction, from such states, so checks
         of the physics step start from them."""
-        model, spec, dev = self.model, self.model.robot, self.device
+        dev = self.device
         sim = state.sim
         K = sim.qpos.shape[0]
-        base = const(model, "robot_base_pose", model.robot_base_pose, dev)
-        tcp = spec.frame_of(self.agent.ee_link_name)[0]
-        arm = np.arange(7)
-        qlim = torch.as_tensor(model.robot_qlim, device=dev)
 
         def uniform(shape, lo, hi):
             return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
-        cube = sim.free_pose[:, self.cube]
-        # the cube's yaw (reset cubes are yaw-only) folded into [-pi/4, pi/4]:
-        # a quarter turn maps the cube onto itself and keeps the wrist in range
-        yaw = 2.0 * torch.atan2(cube[:, 6], cube[:, 3])
-        yaw = yaw - (math.pi / 2) * torch.round(yaw / (math.pi / 2))
-        ez = torch.zeros(K, 3, device=dev)
-        ez[:, 2] = 1.0
-        down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=dev)  # TCP +z -> world -z
-        q_goal = quat_mul(quat_from_axis_angle(ez, yaw), down.expand(K, 4))
-        p_goal = cube[:, :3] + torch.stack(
-            [torch.zeros(K, device=dev), torch.zeros(K, device=dev),
-             uniform((K,), -0.012, -0.002)], dim=-1)
-        qpos = sim.qpos.clone()
-        eye = 1e-4 * torch.eye(6, device=dev)
-        for _ in range(30):  # converges to ~1e-6 m in about 20 steps
-            body_pos, body_quat, axis_w = chain.fk(spec, base, qpos)
-            p, q = chain.frame_pose(spec, base, body_pos, body_quat,
-                                    self.agent.ee_link_name)
-            q_err = quat_mul(q_goal, quat_conjugate(q))
-            w_err = 2.0 * torch.sign(q_err[:, :1]) * q_err[:, 1:]
-            err = torch.cat([w_err, p_goal - p], dim=-1)
-            J = chain.point_jacobian(spec, body_pos, axis_w, p, tcp, arm,
-                                     model.ancestor_mask)  # (K, 6, 7)
-            dq = J.transpose(1, 2) @ torch.linalg.solve(
-                J @ J.transpose(1, 2) + eye, err[..., None])
-            qpos[:, :7] = torch.clamp(qpos[:, :7] + dq[..., 0].clamp(-0.2, 0.2),
-                                      qlim[:7, 0], qlim[:7, 1])
+        qpos = grasp_qpos(self, sim.qpos, sim.free_pose[:, self.cube], gen)
         qpos[:, 7:9] = uniform((K, 1), self.cube_half_size - 0.001,
                                self.cube_half_size)
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
@@ -140,7 +151,7 @@ class PickCubeEnv(BaseEnv):
         target = qpos.clone()
         target[:, 7:9] = 0.0  # the arm holds its pose, the gripper shuts
         cmd = self.agent.controller.reset(qpos).replace(target_qpos=target)
-        sim = make_step_fn(model)(sim, cmd, self.sim_steps_per_control)
+        sim = make_step_fn(self.model)(sim, cmd, self.sim_steps_per_control)
         return state.replace(sim=sim, cmd=cmd)
 
     def evaluate(self, state: EnvState, ctx: TaskContext):

@@ -9,36 +9,38 @@ the TPU kernel's env-last data layout: an input plane (R_in, K) and an
 output plane (R_out, K), row r of env k at ``r*K + k``, with the same row
 plan (``_Plan``) and component order as the JAX ``_pack``/``_unpack``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``maniskill_tpu_torch/_build/`` keyed by a hash of the source, and loaded
-with ``ctypes``. Its plain version is the PyTorch engine step
-(``engine.make_step_fn``), which the wrapper takes for CPU tensors only.
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``maniskill_tpu_torch/_cuda.py``) and loaded with ``ctypes``. Its plain
+version is the PyTorch engine step (``engine.make_step_fn``), which the
+wrapper takes for CPU tensors only.
+
+``KernelStep`` is the port of the JAX ``custom_jvp`` seam
+(``maniskill_tpu/envs/base_env.py:495-513``): a ``torch.autograd.Function``
+whose forward launches the kernel and whose derivatives, forward
+(``jvp``) and reverse (``backward``), recompute the plain step on the saved
+inputs and differentiate it. The kernel has no derivative of its own.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-import hashlib
-import os
 import re
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import _cuda
+from .._consts import const
 from .engine import (_assignment_tables, _trace_metadata, _v_body, joint_columns,
                      make_step_fn, point_forces, robot_fk)
 from .model import BodyKind, DriveCmd, SceneModel, SimState
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "megakernel.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = _cuda.CSRC / "megakernel.cu"
 BLOCK = 32  # threads per block: K=4096 envs -> 128 blocks over 132 SMs
 
 # pair functions the kernel implements, in the order of its PairFn enum
-_FNS = ("plane_box", "box_box_onesided", "box_box_corners")
+_FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box")
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,7 +62,7 @@ def _enum(name: str):
 
 def supports(model: SceneModel) -> bool:
     """Whether the CUDA kernel covers this model: velocity contact mode, one
-    robot tree, pair functions in the three the kernel implements, and sizes
+    robot tree, pair functions among those the kernel implements, and sizes
     within its compile-time caps. (The port's ``SceneModel`` has no pair
     drives or hulls yet, so they need no test here.)"""
     caps = _caps()
@@ -231,6 +233,7 @@ OPS = dict(
     plane_box=52,       # box corner in the world, depth against the plane, normal
     box_box_onesided=140,  # corner in the world, into B's frame, box SDF and normal, back out
     box_box_corners=142,   # the same; half the points negate the normal
+    box_box=142,        # the same: a face centre costs what a corner does
     point_inactive=1,   # the margin test: no force, and the warm start resets to 0
     point_active=134,   # context 22, force law 2×30, gate and gains 31, warm-start update 21
     vel_robot_side=12,  # v + ω × r of the side's robot body, per contact pass
@@ -293,7 +296,7 @@ def work(plan: _Plan, state: SimState, cmd: DriveCmd, n_substeps: int):
     a_robot = np.asarray([np.count_nonzero((anc[ra] if ra >= 0 else 0)
                                            - (anc[rb] if rb >= 0 else 0))
                           for ra, rb in zip(plan.pra, plan.prb)])
-    free = (plan.pfa != plan.pfb).astype(int)
+    free = (plan.pfa >= 0).astype(int) + (plan.pfb >= 0)  # free bodies moving the point
     a = a_robot + 6 * free
     per_loaded = (OPS["jac_robot_dof"] * a_robot + OPS["jac_free_body"] * free
                   + OPS["jac_dof"] * a + OPS["jac_pair"] * (a * (a + 1) // 2))
@@ -384,42 +387,84 @@ def unpack(plan: _Plan, out: torch.Tensor, state: SimState):
     return new_state, aux
 
 
-def _nvcc() -> str:
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    return str(cand) if cand.exists() else "nvcc"
-
-
-def build() -> Path:
-    """Compile the kernel into a shared library (once per source hash) and
-    return its path. ``nvcc`` output (``-Xptxas -v``: registers, spills) is
-    kept beside the library as ``.log``."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmegakernel_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (BUILD_DIR / f"libmegakernel_{tag}.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def load_library(path=None):
+    """The kernel's library: this package's build, or the one at ``path``."""
+    lib = ctypes.CDLL(str(path)) if path is not None else _cuda.load("megakernel")
     lib.mk_step.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.mk_step.restype = ctypes.c_int
     lib.mk_error_string.argtypes = [ctypes.c_int]
     lib.mk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# the SimState fields one step changes: KernelStep's outputs
+STEP_FIELDS = ("qpos", "qvel", "free_pose", "free_vel", "contact_lam", "contact_lam_t")
+_SIM_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+_CMD_FIELDS = tuple(f.name for f in dataclasses.fields(DriveCmd))
+
+
+def _split(flat):
+    """The flat argument list of KernelStep -> (SimState, DriveCmd)."""
+    n = len(_SIM_FIELDS)
+    return (SimState(**dict(zip(_SIM_FIELDS, flat[:n]))),
+            DriveCmd(**dict(zip(_CMD_FIELDS, flat[n:]))))
+
+
+class KernelStep(torch.autograd.Function):
+    """One physics step with the kernel as its primal and the plain step as
+    its derivative (the JAX ``custom_jvp`` seam). Arguments: the
+    ``MegaKernel``, the number of sim steps, then the ``SimState`` and
+    ``DriveCmd`` fields in declaration order (``None`` for a gain the
+    command leaves to the model); outputs: the ``STEP_FIELDS`` of the new
+    state. ``jvp`` and ``backward`` rerun the plain step on the saved
+    inputs, so a tangent or a gradient never goes through the kernel, and
+    the primal and the derivative of one call come from two
+    implementations that agree to float32 rounding, as in JAX.
+
+    ``jvp`` uses ``torch.func.jvp``: forward mode through this step works
+    under ``torch.func.jvp`` (which nests), not under
+    ``torch.autograd.forward_ad``."""
+
+    @staticmethod
+    def forward(kernel, sim_steps, *flat):
+        state, cmd = _split(flat)
+        new, _ = kernel(state, cmd, sim_steps)
+        return tuple(getattr(new, n) for n in STEP_FIELDS)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        kernel, sim_steps, *flat = inputs
+        ctx.kernel, ctx.sim_steps = kernel, sim_steps
+        ctx.present = [t is not None for t in flat]
+        saved = [t for t in flat if t is not None]
+        ctx.save_for_backward(*saved)
+        ctx.save_for_forward(*saved)
+
+    @staticmethod
+    def _plain(ctx):
+        """The plain step as a function of the present (non-None) inputs."""
+        def fn(*present):
+            it = iter(present)
+            state, cmd = _split([next(it) if p else None for p in ctx.present])
+            new, _ = ctx.kernel.plain(state, cmd, ctx.sim_steps)
+            return tuple(getattr(new, n) for n in STEP_FIELDS)
+        return fn
+
+    @staticmethod
+    def jvp(ctx, _kernel, _sim_steps, *tangents):
+        saved = ctx.saved_tensors
+        tans = [t for t, p in zip(tangents, ctx.present) if p]
+        tans = tuple(torch.zeros_like(x) if t is None else t for x, t in zip(saved, tans))
+        _, out = torch.func.jvp(KernelStep._plain(ctx), tuple(saved), tans)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            out = KernelStep._plain(ctx)(*inputs)
+            got = iter(torch.autograd.grad(out, inputs, grads, allow_unused=True))
+        return (None, None, *[next(got) if p else None for p in ctx.present])
 
 
 class MegaKernel:
@@ -438,7 +483,7 @@ class MegaKernel:
         self.launches = 0
         self._plain_step = None
         self._lib = None
-        self._tables = {}
+        self._host_tables = None
 
     def __call__(self, state: SimState, cmd: DriveCmd, sim_steps: int):
         dev = state.qpos.device
@@ -449,6 +494,15 @@ class MegaKernel:
         plane = pack(self.plan, state, cmd)
         out = self.launch(plane, sim_steps * self.model.params.substeps)
         return unpack(self.plan, out, state)
+
+    def step(self, state: SimState, cmd: DriveCmd, sim_steps: int) -> SimState:
+        """The differentiable step the env dispatches to: ``KernelStep`` for
+        CUDA tensors, the plain step itself for CPU tensors."""
+        if state.qpos.device.type == "cpu":
+            return self.plain(state, cmd, sim_steps)[0]
+        flat = [getattr(state, n) for n in _SIM_FIELDS] + [getattr(cmd, n) for n in _CMD_FIELDS]
+        out = KernelStep.apply(self, sim_steps, *flat)
+        return state.replace(**dict(zip(STEP_FIELDS, out)))
 
     def plain(self, state: SimState, cmd: DriveCmd, sim_steps: int):
         """The kernel's plain PyTorch version (the engine step)."""
@@ -471,12 +525,10 @@ class MegaKernel:
             raise ValueError(f"need n_substeps >= 1 and K >= 1, got {n_substeps}, {K}")
         if self._lib is None:
             self._lib = load_library()
-        key = str(plane.device)
-        if key not in self._tables:
-            mf, mi = plan.tables()
-            self._tables[key] = (torch.as_tensor(mf, device=plane.device),
-                                 torch.as_tensor(mi, device=plane.device))
-        mf_t, mi_t = self._tables[key]
+            self._host_tables = plan.tables()
+        mf, mi = self._host_tables
+        mf_t = const(self, "mf", mf, plane.device, torch.float32)
+        mi_t = const(self, "mi", mi, plane.device, torch.int32)
         out = torch.empty((plan.R_out, K), dtype=torch.float32, device=plane.device)
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         err = self._lib.mk_step(plane.data_ptr(), out.data_ptr(), mf_t.data_ptr(),

@@ -1,10 +1,12 @@
 """Scene model: static scene description + batched simulation state.
 
 Port of ``maniskill_tpu/physics/model.py`` for the scene class PickCube
-uses: ``SimParams``, ``SimState``, ``DriveCmd``, ``SceneModel`` and
-``SceneSpecBuilder`` with ``box_geom``/``plane_geom``. Not ported yet:
-convex hulls, capsules and spheres, articulated objects merged into a
-kinematic forest, and actor-pair drives.
+and StackCube use (boxes, planes, free bodies; box-box pairs resolved as in
+``_build_pair_tables``, ``:336-373``): ``SimParams``, ``SimState``,
+``DriveCmd``, ``SceneModel`` and ``SceneSpecBuilder`` with
+``box_geom``/``plane_geom``. Not ported yet: convex hulls, capsules and
+spheres, articulated objects merged into a kinematic forest, and
+actor-pair drives.
 
 ``SceneModel`` holds numpy constants (device-free). ``SimState`` and
 ``DriveCmd`` are dataclasses of tensors with the batch dimension K leading.
@@ -82,6 +84,23 @@ def tree_map(fn: Callable, obj):
             f.name: tree_map(fn, getattr(obj, f.name))
             for f in dataclasses.fields(obj)})
     return obj
+
+
+def tree_cat(objs):
+    """Concatenate matching nests of dataclasses and dicts leaf by leaf
+    along the batch dimension (``None`` fields stay ``None``)."""
+    first = objs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat(objs)
+    if isinstance(first, dict):
+        return {k: tree_cat([o[k] for o in objs]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: tree_cat([getattr(o, f.name) for o in objs])
+            for f in dataclasses.fields(first)})
+    return first
 
 
 class _Struct:
@@ -193,28 +212,26 @@ class SceneModel:
 
     def _build_pair_tables(self):
         """Resolve each pair's contact function and group pairs by function
-        (groups ordered by function name, as in the JAX package)."""
+        (groups ordered by function name, as in the JAX package). Box-box
+        pairs: against a static or kinematic box the one-sided 8-point
+        test (the dynamic box as side A), against a robot link the 16
+        corners, free against free the full 28-point ``box_box``."""
         self.pair_table = []
+        fixed = (BodyKind.STATIC, BodyKind.KINEMATIC)
         for (ia, ib) in self.pairs:
             ga, gb = self.geoms[ia], self.geoms[ib]
-            fixed = (BodyKind.STATIC, BodyKind.KINEMATIC)
+            fn, k, swapped = contact_fn(ga.gtype, gb.gtype)
             if ga.gtype == GeomType.BOX and gb.gtype == GeomType.BOX:
                 if (ga.kind in fixed) != (gb.kind in fixed):
-                    # box against a static/kinematic box: only the dynamic
-                    # box's corners can penetrate
+                    # only the dynamic box's corners can penetrate
                     if ga.kind in fixed:
                         ia, ib = ib, ia
                         ga, gb = gb, ga
                     fn, k = box_box_onesided, 8
                 elif BodyKind.ROBOT_LINK in (ga.kind, gb.kind):
                     fn, k = box_box_corners, 16
-                else:
-                    raise NotImplementedError(
-                        "the 28-point free-free box_box test is not ported")
-            else:
-                fn, k, swapped = contact_fn(ga.gtype, gb.gtype)
-                if swapped:
-                    ia, ib = ib, ia
+            if swapped:
+                ia, ib = ib, ia
             mu = 0.5 * (ga.friction + gb.friction)
             self.pair_table.append((ia, ib, fn, k, mu))
         by_fn = {}

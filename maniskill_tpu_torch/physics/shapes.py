@@ -1,10 +1,11 @@
 """Collision primitives and pairwise contact-point generation, batched.
 
 Port of the box and plane parts of ``maniskill_tpu/physics/shapes.py``:
-``plane_box`` (``:110``), ``box_box_corners`` (``:281``),
-``box_box_onesided`` (``:301``) and their helpers ``_box_corners`` and
-``_point_box_sdf``, plus ``contact_fn``. The sphere, capsule, full 28-point
-``box_box`` and convex-hull functions are not ported yet.
+``plane_box`` (``:110``), the symmetric 28-point ``box_box`` (``:198``)
+with ``_FACE_DIRS`` and ``_box_face_centers`` (``:188-195``),
+``box_box_corners`` (``:281``), ``box_box_onesided`` (``:301``) and their
+helpers ``_box_corners`` and ``_point_box_sdf``, plus ``contact_fn``. The
+sphere, capsule and convex-hull functions are not ported yet.
 
 Every pair function emits a fixed number of candidate points; inputs are
 poses ``p (..., 3)``, ``q (..., 4)`` and half sizes ``s (..., 3)``, outputs
@@ -13,13 +14,14 @@ means penetration.
 """
 from __future__ import annotations
 
-import functools
 from enum import IntEnum
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .._consts import const
 from ..math.rotations import quat_apply, quat_conjugate
 
 
@@ -44,14 +46,23 @@ _BOX_CORNERS = np.array(
 )
 
 
-@functools.lru_cache(maxsize=8)
-def _corner_signs(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_BOX_CORNERS, device=device)
+_FACE_DIRS = np.array(
+    [[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0], [0, -1.0, 0], [0, 0, 1.0], [0, 0, -1.0]],
+    dtype=np.float32,
+)
+
+
+_CONSTS = SimpleNamespace()  # holds this module's device copies (_consts.const)
 
 
 def _box_corners(pos, quat, half):
-    corners = _corner_signs(pos.device) * half[..., None, :]
+    corners = const(_CONSTS, "corners", _BOX_CORNERS, pos.device) * half[..., None, :]
     return pos[..., None, :] + quat_apply(quat[..., None, :], corners)
+
+
+def _box_face_centers(pos, quat, half):
+    centers = const(_CONSTS, "face_dirs", _FACE_DIRS, pos.device) * half[..., None, :]
+    return pos[..., None, :] + quat_apply(quat[..., None, :], centers)
 
 
 def _unit_z(like: torch.Tensor) -> torch.Tensor:
@@ -83,13 +94,18 @@ def _point_box_sdf(p_local: torch.Tensor, half: torch.Tensor):
     return sdf, n
 
 
-def _corners_in_box(pa, qa, sa, pb, qb, sb):
-    """Corners of box A against box B: positions, B->A normals, depths."""
-    ca = _box_corners(pa, qa, sa)  # (..., 8, 3)
+def _points_in_box(ca, pb, qb, sb):
+    """Points ``ca (..., n, 3)`` against box B: positions, B->A normals,
+    depths."""
     ca_local = quat_apply(quat_conjugate(qb)[..., None, :], ca - pb[..., None, :])
     sdf, n_local = _point_box_sdf(ca_local, sb[..., None, :])
     n = quat_apply(qb[..., None, :], n_local)
     return ca, n, -sdf
+
+
+def _corners_in_box(pa, qa, sa, pb, qb, sb):
+    """Corners of box A against box B: positions, B->A normals, depths."""
+    return _points_in_box(_box_corners(pa, qa, sa), pb, qb, sb)
 
 
 def plane_box(pa, qa, sa, pb, qb, sb) -> ContactPoints:
@@ -98,6 +114,23 @@ def plane_box(pa, qa, sa, pb, qb, sb) -> ContactPoints:
     corners = _box_corners(pb, qb, sb)  # (..., 8, 3)
     dist = torch.sum((corners - pa[..., None, :]) * n[..., None, :], dim=-1)
     return ContactPoints(corners, (-n)[..., None, :].expand_as(corners), -dist)
+
+
+def box_box(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """Symmetric vertex-SDF box-box (28 points) for free-free pairs: A's 8
+    corners and 6 face centers against B, then B's against A with the
+    normal negated (B->A). The face centers carry two flush, stacked boxes:
+    their corners all sit on the other box's side planes, where the SDF
+    reads zero depth."""
+    pts_a = torch.cat([_box_corners(pa, qa, sa), _box_face_centers(pa, qa, sa)], dim=-2)
+    pts_b = torch.cat([_box_corners(pb, qb, sb), _box_face_centers(pb, qb, sb)], dim=-2)
+    pos_a, n_a, d_a = _points_in_box(pts_a, pb, qb, sb)
+    pos_b, n_b, d_b = _points_in_box(pts_b, pa, qa, sa)
+    return ContactPoints(
+        torch.cat([pos_a, pos_b], dim=-2),
+        torch.cat([n_a, -n_b], dim=-2),
+        torch.cat([d_a, d_b], dim=-1),
+    )
 
 
 def box_box_corners(pa, qa, sa, pb, qb, sb) -> ContactPoints:
@@ -117,10 +150,12 @@ def box_box_onesided(pa, qa, sa, pb, qb, sb) -> ContactPoints:
     return ContactPoints(*_corners_in_box(pa, qa, sa, pb, qb, sb))
 
 
-# (type_a, type_b) -> (fn, n_points). Box-box pairs are resolved by the model
-# builder to the one-sided or corners-only test (model.py).
+# (type_a, type_b) -> (fn, n_points). The model builder replaces box_box by
+# the one-sided or corners-only test where one side is fixed or a robot
+# link (model.py).
 PAIR_FUNCS = {
     (GeomType.PLANE, GeomType.BOX): (plane_box, 8),
+    (GeomType.BOX, GeomType.BOX): (box_box, 28),
 }
 
 

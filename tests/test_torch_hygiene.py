@@ -15,7 +15,10 @@ _CHECK = """
 import sys
 import maniskill_tpu_torch
 import maniskill_tpu_torch.convert, maniskill_tpu_torch.planners.mppi
-import maniskill_tpu_torch.physics.megakernel
+import maniskill_tpu_torch.planners.cem, maniskill_tpu_torch.planners.ilqr
+import maniskill_tpu_torch.planners.mpc
+import maniskill_tpu_torch.physics.megakernel, maniskill_tpu_torch.physics.solve_kernel
+import maniskill_tpu_torch.envs.tasks.stack_cube, maniskill_tpu_torch.kernel_ab
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))

@@ -13,6 +13,7 @@ import torch
 
 import maniskill_tpu_torch as mtt
 from maniskill_tpu_torch.physics import megakernel
+from maniskill_tpu_torch.physics import engine
 from maniskill_tpu_torch.physics.engine import make_step_fn
 
 K = 3
@@ -110,25 +111,31 @@ def test_work_counts_this_runs_data(env):
     assert ops_far < ops / 5
 
 
+def _as64(x):
+    """A state or command with its float tensors in float64."""
+    return x.replace(**{f.name: v.double() for f in dataclasses.fields(x)
+                        if isinstance(v := getattr(x, f.name), torch.Tensor)
+                        and v.is_floating_point()})
+
+
+def _in_float64(fn, *args):
+    """``fn(*args)`` under torch's float64 default dtype."""
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_default_dtype(prev)
+
+
 def test_plain_step_runs_in_float64(env):
     """The plain step as a float64 reference: float64 state and command
     under torch's float64 default give float64 results close to the
     float32 step from a reset state."""
     st = env._state
-
-    def as64(x):
-        return x.replace(**{f.name: v.double() for f in dataclasses.fields(x)
-                            if isinstance(v := getattr(x, f.name), torch.Tensor)
-                            and v.is_floating_point()})
-
     step = make_step_fn(env.model)
     ref = step(st.sim, st.cmd, 5)
-    prev = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
-        got = step(as64(st.sim), as64(st.cmd), 5)
-    finally:
-        torch.set_default_dtype(prev)
+    got = _in_float64(step, _as64(st.sim), _as64(st.cmd), 5)
     assert got.qpos.dtype == torch.float64 and got.contact_lam.dtype == torch.float64
     torch.testing.assert_close(got.qpos.float(), ref.qpos, atol=2e-5, rtol=0)
     torch.testing.assert_close(got.free_pose.float(), ref.free_pose, atol=2e-5, rtol=0)
@@ -202,3 +209,157 @@ def test_kernel_matches_plain(states):
         assert (loaded[grasp][:, plan.pfn == 2].sum(1) >= 4).mean() >= 0.75
         assert (loaded[~grasp][:, plan.pfn == 0].sum(1) >= 1).mean() >= 0.75
         assert (ref.contact_lam_t.abs().sum(-1) > 0).sum() >= 6 * grasp.sum()
+
+
+def test_pair_functions_follow_kernel_enum():
+    """The wrapper's pair-function table is the kernel's PairFn enum."""
+    assert [f"FN_{n.upper()}" for n in megakernel._FNS] == list(megakernel._enum("PairFn"))
+
+
+@pytest.fixture(scope="module")
+def stack():
+    e = mtt.make("StackCube-v1", num_envs=K, reward_mode="dense", device="cpu")
+    e.reset(seed=0)
+    return e
+
+
+def test_work_counts_free_free_points(stack):
+    """StackCube's cubeA-cubeB points move two free bodies: their loaded
+    Jacobian work counts twelve free-body columns."""
+    plan = megakernel._Plan(stack.model)
+    assert plan.pfn[:28].tolist() == [3] * 28
+    cst = stack.contact_state(stack._state, torch.Generator().manual_seed(0))
+    nbytes, ops, counts = megakernel.work(plan, cst.sim, cst.cmd, 5)
+    assert nbytes == 4 * (1242 + 1954) * K + sum(a.nbytes for a in plan.tables())
+    assert 0 < counts["loaded"] <= counts["active"] < counts["points"]
+
+
+def _flat(sim, cmd):
+    names = megakernel._SIM_FIELDS + megakernel._CMD_FIELDS
+    return [getattr(sim, n) if n in megakernel._SIM_FIELDS else getattr(cmd, n) for n in names]
+
+
+def test_kernel_step_derivatives_come_from_the_plain_step(stack):
+    """The seam (``KernelStep``, the JAX custom_jvp): its forward is the
+    wrapper's step (on CPU tensors the plain step stands in for the
+    kernel), its forward-mode tangents (``torch.func.jvp``) and its
+    reverse-mode gradients equal those of the plain step itself, from
+    states in contact (cubeA on cubeB, grasps), along seeded directions."""
+    cst = stack.contact_state(stack._state, torch.Generator().manual_seed(1))
+    kern = megakernel.MegaKernel(stack.model)
+    flat = _flat(cst.sim, cst.cmd)
+    g = torch.Generator().manual_seed(2)
+    diff = {"qpos", "qvel", "free_pose", "free_vel", "target_qpos"}
+    names = megakernel._SIM_FIELDS + megakernel._CMD_FIELDS
+    tans = [torch.randn(t.shape, generator=g) if n in diff else torch.zeros_like(t)
+            for n, t in zip(names, flat) if t is not None]
+    present = [t for t in flat if t is not None]
+
+    def via_seam(*xs):
+        it = iter(xs)
+        return megakernel.KernelStep.apply(kern, 1, *[next(it) if t is not None else None
+                                                      for t in flat])
+
+    def via_plain(*xs):
+        it = iter(xs)
+        state, cmd = megakernel._split([next(it) if t is not None else None for t in flat])
+        new = kern.plain(state, cmd, 1)[0]
+        return tuple(getattr(new, n) for n in megakernel.STEP_FIELDS)
+
+    out_s, tan_s = torch.func.jvp(via_seam, tuple(present), tuple(tans))
+    out_p, tan_p = torch.func.jvp(via_plain, tuple(present), tuple(tans))
+    for a, b in zip(out_s + tan_s, out_p + tan_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert max(float(t.abs().max()) for t in tan_p) > 0
+    cot = [torch.randn(o.shape, generator=g) for o in out_p]
+    grads = []
+    for fn in (via_seam, via_plain):
+        xs = [t.clone().requires_grad_() for t in present]
+        torch.autograd.backward(fn(*xs), cot)
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert float(grads[0][0].abs().max()) > 0  # qpos
+
+
+def test_kernel_step_jvp_twice_on_a_fresh_model():
+    """Forward mode through the seam nests one ``torch.func.jvp`` in
+    another; the model constants the plain step caches on first use must
+    not be made inside the inner one (they would be wrapped for a level
+    that is gone at the next call). A fresh model whose plain step first
+    runs inside the seam's ``jvp`` (the forward's primal comes from another
+    model, as the CUDA kernel's would), two calls."""
+    env = mtt.make("StackCube-v1", num_envs=2, device="cpu")
+    env.reset(seed=0)
+    st = env._state
+    other = megakernel.MegaKernel(mtt.make("StackCube-v1", num_envs=2, device="cpu").model)
+
+    class StandIn(megakernel.MegaKernel):
+        def __call__(self, state, cmd, sim_steps):
+            return other.plain(state, cmd, sim_steps)
+
+    kern = StandIn(env.model)
+
+    def f(qpos):
+        return megakernel.KernelStep.apply(kern, 1, *_flat(st.sim.replace(qpos=qpos), st.cmd))[1]
+
+    tans = [torch.func.jvp(f, (st.sim.qpos,), (torch.ones_like(st.sim.qpos),))[1]
+            for _ in range(2)]
+    torch.testing.assert_close(tans[0], tans[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_stackcube_kernel_matches_plain(states):
+    """StackCube-v1 (two free cubes: the free-free box_box pair) through
+    the CUDA kernel against the plain step on the card, K=37, from reset
+    states or ``StackCubeEnv.contact_state`` states (cubeA stacked on
+    cubeB, or grasped); tolerances as ``test_kernel_matches_plain``.
+
+    Every env must agree except the ill-conditioned ones: all contact
+    states, and the reset states whose cubes start interpenetrating (the
+    JAX placement rule allows it; chip_smoke.py). Those are refereed by a
+    float64 plain step: at most 10 % of all envs may leave the tolerances,
+    and the kernel may be no further from the float64 step than the
+    float32 plain step is (1.5 x its count of envs beyond tol, plus 2). In
+    contact the cubeA-cubeB points carry force in the stacked envs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("StackCube-v1", num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    plan = cenv.kernel.plan
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        refereed = torch.ones(37, dtype=torch.bool, device="cuda")
+    else:
+        depth = engine.compute_contacts(
+            cenv.model, st.sim, *engine.robot_fk(cenv.model, st.sim.qpos)[:2])[2]
+        free_free = torch.as_tensor((plan.pfa >= 0) & (plan.pfb >= 0), device="cuda")
+        refereed = (depth[:, free_free] > 0).any(1)
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    got, aux = cenv.kernel(st.sim, cmd, 5)
+    ref, aux_ref = cenv.kernel.plain(st.sim, cmd, 5)
+    f64, aux64 = _in_float64(cenv.kernel.plain, _as64(st.sim), _as64(cmd), 5)
+    torch.cuda.synchronize()
+    names = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+                 contact_lam=5e-3, contact_lam_t=5e-3)
+    triples = [(getattr(got, n), getattr(ref, n), getattr(f64, n), tol)
+               for n, tol in names.items()]
+    triples += [(aux["f_pt"], aux_ref["f_pt"], aux64["f_pt"], 5e-3)]
+
+    def beyond(a, b, tol):
+        return (a.double() - b.double()).abs().reshape(37, -1).amax(1) > tol
+
+    for a, b, c, tol in triples:
+        assert torch.isfinite(a).all()
+        out = beyond(a, b, tol)
+        assert not (out & ~refereed).any(), (out.nonzero().ravel(), tol)
+        assert int(out.sum()) <= 0.1 * 37, (int(out.sum()), tol)
+        k64 = int((beyond(a, c, tol) & refereed).sum())
+        p64 = int((beyond(b, c, tol) & refereed).sum())
+        assert k64 <= 1.5 * p64 + 2, (k64, p64, tol)
+    if states == "contact":
+        loaded = (aux_ref["f_pt"].abs().sum(-1) > 0).cpu().numpy()
+        stacked = np.arange(37) % 2 == 0
+        assert (loaded[stacked][:, :28].sum(1) >= 1).mean() >= 0.5
