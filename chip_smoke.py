@@ -9,13 +9,16 @@ Phases (each passes or ends the script with a non-zero exit):
      ``csrc/megakernel.cu``) and the batched SPD solve (K1,
      ``csrc/solve_psd.cu``);
   2. hold K2 against its plain PyTorch step on the card, for PickCube-v1
-     and for StackCube-v1 (two free cubes: the free-free box_box pair): one
-     control step (5 substeps) of K=4096 states with perturbed drive
-     targets, aux outputs included, from reset states and from states in
-     contact (``contact_state``; the check fails unless every pair function
-     and friction carry force there), then a 10-control-step settle check
-     through the kernel alone; time the kernel and its plain version and
-     count the step's work for the bound;
+     and StackCube-v1 (two free cubes: the free-free box_box pair) at
+     K=4096, for PickSingleYCB-v1 at K=8192 (the plane its MPPI path
+     launches) and for PickSingleHull-v1 at K=4096 (a convex hull per env,
+     all 8 library objects present: plane_hull and box_hull): one control
+     step (5 substeps) of states with perturbed drive targets, aux outputs
+     included, from
+     reset states and from states in contact (``contact_state``; the check
+     fails unless every pair function and friction carry force there), then
+     a 10-control-step settle check through the kernel alone; time the
+     kernel and its plain version and count the step's work for the bound;
   3. the differentiable step on the card: the JVP and the VJP of one
      StackCube ``_rollout_step`` through ``KernelStep`` (kernel primal,
      plain-step derivative) against those of the plain step, K=64;
@@ -23,15 +26,19 @@ Phases (each passes or ends the script with a non-zero exit):
      ``reset``, then MPPI at H=50, K=4096 (sigma 0.6, temperature 0.3): one
      warm-up solve and 5 timed solves, with K2's launch count read around
      them;
-  5. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
+  5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
+     K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
+     0.1): one warm-up solve and 5 timed solves, 50 kernel launches each;
+  6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
      iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 2
-     timed plan steps, split into CEM and iLQR, K2's launches per plan step
+     timed plan steps, split into CEM and iLQR (and iLQR into its rollouts,
+     linearizations and line searches), K2's launches per plan step
      checked against the design, then one env step with the planned action;
-  6. hold K1 against its plain version (n = 9, 15, 21; K = 4096 and 37),
+  7. hold K1 against its plain version (n = 9, 15, 21; K = 4096 and 37),
      time it beside its plain version and the library call, and drive its
      entry point once;
-  7. print one JSON line of the kernels (launches on their paths, time per
+  8. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
      ``{"ok": true, "device": {...}}``.
@@ -47,6 +54,9 @@ import time
 
 H, K_MPPI, K_CHECK = 50, 4096, 4096
 TIMED_SOLVES = 5
+# PickSingleYCB-v1 MPPI, BASELINE config #5 (the JAX package's
+# tools/solve_tasks.py:90-94)
+K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
 # StackCube CEM + iLQR (BASELINE config #3, the JAX package's
 # tools/solve_tasks.py:80-84)
 H_PLAN, K_CEM, ELITES, CEM_ITERS, ILQR_ITERS = 60, 1024, 64, 4, 3
@@ -120,7 +130,7 @@ def pickcube_branches(env, plan, cst, loaded, depth):
 
     pfn = torch.as_tensor(plan.pfn, device="cuda")
     robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device="cuda")
-    grasp = torch.arange(K_CHECK, device="cuda") % 4 != 3
+    grasp = torch.arange(loaded.shape[0], device="cuda") % 4 != 3
     lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
     margin = env.model.params.contact_margin
     return {
@@ -140,7 +150,7 @@ def stackcube_branches(env, plan, cst, loaded, depth):
 
     pfn = torch.as_tensor(plan.pfn, device="cuda")
     robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device="cuda")
-    idx = torch.arange(K_CHECK, device="cuda")
+    idx = torch.arange(loaded.shape[0], device="cuda")
     stacked, floor = idx % 2 == 0, idx % 4 == 3
     grasp = ~stacked
     lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
@@ -157,15 +167,48 @@ def stackcube_branches(env, plan, cst, loaded, depth):
     }
 
 
-def kernel_phase(mtt, engine, megakernel, task, branches):
-    """Phase 2 for one task: K2 against its plain step, settle, time, bound."""
+def hull_branches(env, plan, cst, loaded, depth):
+    """What must carry force in PickSingleHull contact states (the object
+    grasped and on the table, or on the floor in every fourth env)."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    pfn = torch.as_tensor(plan.pfn, device="cuda")
+    box_hull, plane_hull = pfn == _FNS.index("box_hull"), pfn == _FNS.index("plane_hull")
+    robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device="cuda")
+    corner = torch.as_tensor(plan.pcorner < 8, device="cuda")
+    grasp = torch.arange(loaded.shape[0], device="cuda") % 4 != 3
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: loaded box_hull points {int(loaded[:, box_hull].sum())}"
+          f" (box corners against the hull {int(loaded[:, box_hull & corner].sum())}, hull points"
+          f" against a box {int(loaded[:, box_hull & ~corner].sum())}), plane_hull "
+          f"{int(loaded[:, plane_hull].sum())}")
+    return {
+        "finger-object box_hull loaded": loaded[grasp][:, box_hull & robot].sum(1) >= 2,
+        "object-table box_hull loaded": loaded[grasp][:, box_hull & ~robot].sum(1) >= 1,
+        "object-floor plane_hull loaded": loaded[~grasp][:, plane_hull].sum(1) >= 1,
+        "friction lam_t nonzero (grasps)": lam_t[grasp].sum(1) >= 4,
+    }
+
+
+def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005)):
+    """Phase 2 for one task at ``k`` envs: K2 against its plain step,
+    settle, time, bound. ``settle_band``: how far (m) a free body that
+    starts apart may end from its starting height after 10 control steps."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
-    env = mtt.make(task, num_envs=K_CHECK, reward_mode="dense")
+    env = mtt.make(task, num_envs=k, reward_mode="dense")
+    task = f"{task} K={k}"
     env.reset(seed=0)
     kern, plan = env.kernel, env.kernel.plan
     st = env._state
+    if "model_id" in st.extras:  # per-env objects: every library object present
+        seen = torch.bincount(st.extras["model_id"].long(), minlength=len(env._lib))
+        print(f"[check] {task} reset: envs per library object {seen.tolist()}")
+        if not bool((seen > 0).all()):
+            fail(f"{task}: reset states miss a library object: {seen.tolist()}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
@@ -209,7 +252,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches):
             line = (f"[check] {task} {label} {name}: max |kernel - plain| = {err:.3e} (tol "
                     f"{tol:g}, max |plain| {float(ref[name].abs().max()):.3e}), median env "
                     f"{float(e.median()):.3e}, envs beyond tol {n_strict} of "
-                    f"{K_CHECK - n_ref} held in full")
+                    f"{k - n_ref} held in full")
             if n_strict:
                 worst.append(f"{name}: {n_strict} envs held in full beyond tol {tol:g}")
             if n_ref:
@@ -236,7 +279,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches):
     depth0 = engine.compute_contacts(
         env.model, st.sim, *engine.robot_fk(env.model, st.sim.qpos)[:2])[2]
     overlap = (depth0[:, free_free] > 0).any(1)
-    print(f"[check] {task} reset: {int(overlap.sum())} of {K_CHECK} envs start with "
+    print(f"[check] {task} reset: {int(overlap.sum())} of {k} envs start with "
           "free bodies interpenetrating")
     cmd = perturbed(st.cmd)
     err_reset, _ = compare("reset", st.sim, cmd, referee=overlap)
@@ -250,7 +293,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches):
     cst = env.contact_state(st, gen)
     ccmd = perturbed(cst.cmd)
     err_contact, cref = compare("contact", cst.sim, ccmd,
-                                referee=torch.ones(K_CHECK, dtype=torch.bool, device="cuda"))
+                                referee=torch.ones(k, dtype=torch.bool, device="cuda"))
     loaded = cref["f_pt"].abs().sum(-1) > 0  # (K, P)
     depth = engine.compute_contacts(
         env.model, cst.sim, *engine.robot_fk(env.model, cst.sim.qpos)[:2])[2]
@@ -267,17 +310,17 @@ def kernel_phase(mtt, engine, megakernel, task, branches):
     sim = st.sim
     for _ in range(10):
         sim, _aux = kern(sim, st.cmd, 5)
-    z = sim.free_pose[~overlap][..., 2]
+    dz = (sim.free_pose[..., 2] - st.sim.free_pose[..., 2])[~overlap]
     if not (torch.isfinite(sim.qpos).all() and torch.isfinite(sim.free_pose).all()):
         fail(f"{task} settle run produced non-finite state")
-    if not bool(((z > 0.015) & (z < 0.025)).all()):
-        fail(f"{task}: cubes did not settle: z in [{float(z.min()):.4f}, {float(z.max()):.4f}]")
-    print(f"[check] {task} settle: cube z in [{float(z.min()):.5f}, {float(z.max()):.5f}] "
-          f"in the {int((~overlap).sum())} envs whose cubes start apart")
+    if not bool(((dz > settle_band[0]) & (dz < settle_band[1])).all()):
+        fail(f"{task}: free bodies did not settle: height change in [{float(dz.min()):.4f}, "
+             f"{float(dz.max()):.4f}] m, allowed {settle_band}")
+    print(f"[check] {task} settle: height change in [{float(dz.min()):.5f}, "
+          f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start apart")
 
     # kernel time per launch (5 substeps), its bound and the plain step's
-    # time at K=4096, on both input sets; the kernels line reports the
-    # contact states
+    # time, on both input sets; the kernels line reports the contact states
     timing = {}
     for label, (s_in, c_in) in dict(reset=(st.sim, cmd), contact=(cst.sim, ccmd)).items():
         plane = megakernel.pack(plan, s_in, c_in)
@@ -345,20 +388,37 @@ def seam_phase(mtt, ILQR, ILQRConfig):
     return worst
 
 
-def mppi_phase(mtt, MPPI, MPPIConfig):
-    """Phase 4: PickCube MPPI, the first slice's main path."""
+def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temperature,
+               obs_dim):
+    """Phases 4 and 5: MPPI on one task, one warm-up and TIMED_SOLVES timed
+    solves, K2's launches counted and its device time read around them.
+    Returns the launches, the kernel's mean device time per launch in the
+    timed solves, and the mean bound of a launch, counted by
+    ``megakernel.work`` on the inputs of each of the warm-up solve's
+    launches (the rollouts' own states and commands)."""
     import torch
 
-    env1 = mtt.make("PickCube-v1", num_envs=1, robot_init_qpos_noise=0.0,
-                    reward_mode="dense")
+    env1 = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense")
     env1.reset(seed=0)
-    planner = MPPI(env1, MPPIConfig(horizon=H, num_samples=K_MPPI, sigma=0.6,
-                                    temperature=0.3))
+    planner = MPPI(env1, MPPIConfig(horizon=H, num_samples=num_samples, sigma=sigma,
+                                    temperature=temperature))
     ps = planner.init(seed=0)
+    kern = env1.kernel
+    step, path_work = kern.step, []
+
+    def counted_step(sim, cmd, n_steps):
+        path_work.append(megakernel.work(kern.plan, sim, cmd,
+                                         n_steps * env1.model.params.substeps)[:2])
+        return step(sim, cmd, n_steps)
+
+    kern.step = counted_step
     env1.kernel.launches = 0
     torch.cuda.synchronize()
     ps, info = planner.solve(ps, env1._state)
     torch.cuda.synchronize()
+    del kern.step
+    bytes_ms = statistics.mean(w[0] for w in path_work) / HBM_BYTES_PER_S * 1e3
+    ops_ms = statistics.mean(w[1] for w in path_work) / FP32_OPS_PER_S * 1e3
     if env1.kernel.launches != H:
         fail(f"warm-up solve launched the kernel {env1.kernel.launches} times, not {H}")
     # the kernel's device time inside the timed solves: CUDA events around
@@ -386,26 +446,30 @@ def mppi_phase(mtt, MPPI, MPPIConfig):
     if launches != H * (TIMED_SOLVES + 1):
         fail(f"main path launched the kernel {launches} times, not {H * (TIMED_SOLVES + 1)}")
     returns = info["returns"]
-    if returns.shape != (K_MPPI,) or not bool(torch.isfinite(returns).all()):
+    if returns.shape != (num_samples,) or not bool(torch.isfinite(returns).all()):
         fail("MPPI returns are not all finite")
     if not bool(torch.isfinite(ps.nominal).all()):
         fail("MPPI nominal is not finite")
     obs, reward, *_ = env1.step(ps.nominal[0])
-    if obs.shape != (1, 42) or not bool(torch.isfinite(obs).all()):
+    if obs.shape != (1, obs_dim) or not bool(torch.isfinite(obs).all()):
         fail(f"env step after planning gave obs {tuple(obs.shape)}")
-    rps = K_MPPI * TIMED_SOLVES / dt
-    print(f"[main] PickCube-v1 MPPI H={H} K={K_MPPI}: {rps:.1f} rollouts/s "
+    rps = num_samples * TIMED_SOLVES / dt
+    print(f"[main] {task} MPPI H={H} K={num_samples}: {rps:.1f} rollouts/s "
           f"({dt / TIMED_SOLVES:.3f} s/solve), best return {float(info['best_return']):.4f}, "
-          f"kernel launches {launches}", flush=True)
-    print(f"[main] kernel device time {kernel_busy_ms / TIMED_SOLVES:.3f} ms/solve "
-          f"({len(spans)} launches timed by CUDA events), "
-          f"{100 * kernel_busy_ms / (dt * 1e3):.1f} % of the wall time", flush=True)
+          f"kernel launches {launches} ({launches // (TIMED_SOLVES + 1)} per solve)", flush=True)
+    print(f"[main] {task} kernel device time {kernel_busy_ms / TIMED_SOLVES:.3f} ms/solve "
+          f"({len(spans)} launches timed by CUDA events, "
+          f"{kernel_busy_ms / len(spans):.3f} ms per launch), "
+          f"{100 * kernel_busy_ms / (dt * 1e3):.1f} % of the wall time; bound per launch on "
+          f"the warm-up solve's inputs {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f} ms, "
+          f"operations {ops_ms:.5f} ms, mean of {len(path_work)} launches)", flush=True)
     profile_solve(planner, ps, env1._state)
-    return launches
+    return dict(launches=launches, path_ms=kernel_busy_ms / len(spans),
+                path_bound_ms=max(bytes_ms, ops_ms))
 
 
 def cem_ilqr_phase(mtt, planners):
-    """Phase 5: StackCube CEM + iLQR at BASELINE config #3."""
+    """Phase 6: StackCube CEM + iLQR at BASELINE config #3."""
     import torch
 
     env = mtt.make("StackCube-v1", num_envs=1, reward_mode="dense")
@@ -415,17 +479,21 @@ def cem_ilqr_phase(mtt, planners):
                                iterations=CEM_ITERS, init_sigma=0.5),
         ilqr=planners.ILQRConfig(horizon=H_PLAN, iterations=ILQR_ITERS, action_penalty=1e-3))
     planner = planners.CEMILQR(env, cfg)
-    # synchronized wall time of each stage, read through wrappers
-    spans = {"cem": [], "ilqr": []}
-    for name, stage in (("cem", planner.cem), ("ilqr", planner.ilqr)):
-        def timed(*a, _solve=stage.solve, _name=name, **kw):
+    # synchronized wall time of each stage and of iLQR's passes, read
+    # through wrappers (per plan step: 1 + iterations rollouts at K=1, one
+    # linearization at K = H (nx + nu) and one line search per iteration)
+    spans = {"cem": [], "ilqr": [], "rollout": [], "linearize": [], "line_search": []}
+    stages = [("cem", planner.cem, "solve"), ("ilqr", planner.ilqr, "solve")] + [
+        (n, planner.ilqr, n) for n in ("rollout", "linearize", "line_search")]
+    for name, stage, attr in stages:
+        def timed(*a, _fn=getattr(stage, attr), _name=name, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = _solve(*a, **kw)
+            out = _fn(*a, **kw)
             torch.cuda.synchronize()
             spans[_name].append(time.perf_counter() - t0)
             return out
-        stage.solve = timed
+        setattr(stage, attr, timed)
     # launches per plan step: CEM iterations x H rollout steps (K=1024);
     # iLQR: the initial cost rollout (H), then per iteration the nominal
     # rollout (H), ONE launch for the linearization's primal (all
@@ -445,9 +513,12 @@ def cem_ilqr_phase(mtt, planners):
         counts.append(kern.launches - before)
         infos.append({k: float(v) for k, v in info.items()})
     launches = kern.launches
+    passes = {n: len(spans[n]) // (1 + TIMED_PLANS) for n in ("rollout", "linearize", "line_search")}
     for i, (n, info, wall) in enumerate(zip(counts, infos, walls)):
+        split = ", ".join(f"{sum(spans[k][i * c:(i + 1) * c]):.3f} s in {c} {k}"
+                          for k, c in passes.items())
         print(f"[stack] plan step {i}{' (warm-up)' if i == 0 else ''}: {wall:.3f} s (CEM "
-              f"{spans['cem'][i]:.3f} s, iLQR {spans['ilqr'][i]:.3f} s), kernel launches {n}, "
+              f"{spans['cem'][i]:.3f} s, iLQR {spans['ilqr'][i]:.3f} s: {split}), kernel launches {n}, "
               f"CEM best return {info['cem_best_return']:.4f}, iLQR cost "
               f"{info['ilqr_initial_cost']:.4f} -> {info['ilqr_final_cost']:.4f}", flush=True)
         if n != per_plan:
@@ -473,7 +544,7 @@ def cem_ilqr_phase(mtt, planners):
 
 
 def solve_phase(linalg, solve_kernel):
-    """Phase 6: K1 against its plain version; times at K=4096, n=21."""
+    """Phase 7: K1 against its plain version; times at K=4096, n=21."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
@@ -566,9 +637,18 @@ def main():
                 if "registers" in line or "spill" in line or "stack frame" in line:
                     print(f"[build] {lib.name.split('_')[0]}: {line.strip()}")
 
-    # ---- 2. K2 against its plain version, K=4096, both scene classes ----
+    # ---- 2. K2 against its plain version on each path's scene ----
     pick = kernel_phase(mtt, engine, megakernel, "PickCube-v1", pickcube_branches)
     stack = kernel_phase(mtt, engine, megakernel, "StackCube-v1", stackcube_branches)
+    # a hull whose lowest point sits above its AABB half height (the reset
+    # height) drops onto the table: up to 3 cm down. PickSingleYCB-v1 at
+    # K=8192 is the plane its MPPI path launches; PickSingleHull-v1 at
+    # K=4096 is an extra check of the same branches
+    ycb = kernel_phase(mtt, engine, megakernel, "PickSingleYCB-v1", hull_branches, k=K_YCB,
+                       settle_band=(-0.03, 0.005))
+    torch.cuda.empty_cache()
+    kernel_phase(mtt, engine, megakernel, "PickSingleHull-v1", hull_branches,
+                 settle_band=(-0.03, 0.005))
     torch.cuda.empty_cache()
 
     # ---- 3. the differentiable step on the card ----
@@ -576,12 +656,18 @@ def main():
     print(f"[seam] largest relative difference {seam_err:.3e}", flush=True)
 
     # ---- 4. the PickCube main path: MPPI ----
-    pick["launches"] = mppi_phase(mtt, planners.MPPI, planners.MPPIConfig)
+    pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1",
+                       K_MPPI, 0.6, 0.3, 42)
 
-    # ---- 5. the StackCube path: CEM + iLQR ----
+    # ---- 5. the PickSingleYCB path: MPPI at config #5 ----
+    torch.cuda.empty_cache()
+    ycb |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickSingleYCB-v1",
+                      K_YCB, SIGMA_YCB, TEMP_YCB, 46)
+
+    # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
 
-    # ---- 6. K1 ----
+    # ---- 7. K1 ----
     k1 = solve_phase(linalg, solve_kernel)
 
     def entry(name, source, replaces, numbers, library_ms=None):
@@ -589,12 +675,17 @@ def main():
                 "launches": numbers["launches"], "max_abs_err": numbers["max_err"],
                 "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
-                "library_ms": library_ms}
+                "library_ms": library_ms} | {
+                    k: numbers[k] for k in ("path_ms", "path_bound_ms") if k in numbers}
 
+    # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
+    # path's K; path_ms and path_bound_ms: the MPPI path's own launches
     k2_src, k2_tpu = "maniskill_tpu_torch/csrc/megakernel.cu", "maniskill_tpu/physics/megakernel.py:494"
     print(json.dumps({"kernels": [
-        entry("megakernel_step", k2_src, k2_tpu, pick) | {"inputs": "PickCube-v1"},
-        entry("megakernel_step", k2_src, k2_tpu, stack) | {"inputs": "StackCube-v1"},
+        entry("megakernel_step", k2_src, k2_tpu, pick) | {"inputs": f"PickCube-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, stack)
+        | {"inputs": f"StackCube-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, ycb) | {"inputs": f"PickSingleYCB-v1, K={K_YCB}"},
         entry("solve_psd", "maniskill_tpu_torch/csrc/solve_psd.cu",
               "maniskill_tpu/physics/pallas_kernels.py:27", k1, k1["library_ms"]),
     ]}))

@@ -14,10 +14,12 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ...math import clamps
+
 
 def clip_and_scale_action(action, low, high):
     """[-1, 1] -> [low, high]."""
-    action = torch.clamp(action, -1.0, 1.0)
+    action = clamps.clip(action, -1.0, 1.0)
     return 0.5 * (high + low) + 0.5 * (high - low) * action
 
 
@@ -94,5 +96,5 @@ class JointController:
         q = qpos[..., self._idx]
         tgt = q + a if self.use_delta else a.expand(q.shape)
         # clamp targets to joint limits like PhysX drive targets do
-        tgt = torch.maximum(torch.minimum(tgt, self._qhi), self._qlo)
+        tgt = clamps.clip(tgt, self._qlo, self._qhi)
         return ControllerState(target_qpos=tgt, target_qvel=torch.zeros_like(tgt))

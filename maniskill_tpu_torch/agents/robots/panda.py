@@ -86,8 +86,8 @@ class Panda(BaseAgent):
         max_rad = float(np.deg2rad(max_angle))
 
         def is_grasping(body_quat, f_pt):
-            lforce_vec = torch.einsum("p,Kpc->Kc", sl, f_pt)
-            rforce_vec = torch.einsum("p,Kpc->Kc", sr, f_pt)
+            lforce_vec = torch.einsum("p,Kpc->Kc", sl.to(f_pt.dtype), f_pt)
+            rforce_vec = torch.einsum("p,Kpc->Kc", sr.to(f_pt.dtype), f_pt)
             lforce = torch.linalg.norm(lforce_vec, dim=-1)
             rforce = torch.linalg.norm(rforce_vec, dim=-1)
             ldir = quat_to_matrix(body_quat[:, lf])[..., :, 1]  # local +y

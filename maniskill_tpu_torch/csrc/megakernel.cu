@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel maniskill_tpu/physics/megakernel.py
 // (_build_kernel -> kernel, launched by make_pallas_step_fn). One launch
 // runs n_substeps physics substeps for every env: robot FK, geom world
-// poses, narrowphase (plane_box, box_box_onesided, box_box_corners and the
-// free-free box_box),
+// poses, narrowphase (plane_box, box_box_onesided, box_box_corners, the
+// free-free box_box, and plane_hull and box_hull against a convex hull
+// whose contact cloud and face planes are per-env rows of the input plane),
 // warm-started velocity-level contact forces, the robot mass matrix and
 // bias with implicit drives, free-body terms, the monolithic Cholesky
 // pair solve (split impulse: velocity and position right-hand sides),
@@ -32,7 +33,13 @@
 // once per model and read by all threads from the same address
 // (broadcast). The Python-unrolled per-model code of the TPU kernel becomes
 // run-time loops over those tables, with compile-time caps on the local
-// arrays (the wrapper refuses models beyond them). Making it fast (several
+// arrays (the wrapper refuses models beyond them). Per-env model data
+// (free-body mass and inertia, geom sizes, the hull tables) are rows of the
+// input plane, never static tables. A box corner against a hull costs two
+// passes over its 32 face planes (the max, then the mean normal of the
+// faces that attain it), read in place from the plane; the face-plane SDF
+// is a separate (not inlined) function, which keeps it from raising the
+// register pressure of the box-only scenes. Making it fast (several
 // threads per env, shared-memory staging) is later work.
 
 #include <cuda_runtime.h>
@@ -43,6 +50,10 @@
 #define NALL_MAX 32
 #define G_MAX 32
 #define F_MAX 4
+// padded hull table sizes (physics/hulls.py HULL_P, HULL_F; the wrapper
+// refuses a model whose tables differ)
+#define HULL_P 40
+#define HULL_F 32
 
 // Layout of the int table `mi`: this header, then the int tables. The
 // Python wrapper reads these names from this file to build the tables.
@@ -53,10 +64,11 @@ enum Header {
   F_ICOM, F_JDAMP, F_JFRIC, F_QLIM, F_GMASK, F_STATIC, F_CMU, F_DN0,
   // int tables: offsets into mi
   I_PARENT, I_JTYPE, I_ANC, I_GKIND, I_GBODY, I_PFN, I_PGA, I_PGB,
-  I_PCORNER, I_PRA, I_PRB, I_PFA, I_PFB,
+  I_PCORNER, I_PRA, I_PRB, I_PFA, I_PFB, I_GHULL,
   // input plane rows
   R_QPOS, R_QVEL, R_FPOSE, R_FVEL, R_KIN, R_GSIZE, R_GPOS, R_GQUAT, R_FMASS,
-  R_FINERTIA, R_LAM, R_LAMT, R_TQ, R_TV, R_QF, R_KP, R_KD, R_FLIM,
+  R_FINERTIA, R_LAM, R_LAMT, R_TQ, R_TV, R_QF, R_KP, R_KD, R_FLIM, R_HVERTS,
+  R_HFACES,
   // output plane rows
   S_QPOS, S_QVEL, S_FPOSE, S_FVEL, S_LAM, S_LAMT, S_FPT, S_BPOS, S_BQUAT,
   S_AXIS,
@@ -69,7 +81,10 @@ enum Param {
   P_COUNT
 };
 
-enum PairFn { FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS, FN_BOX_BOX };
+enum PairFn {
+  FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS, FN_BOX_BOX, FN_PLANE_HULL,
+  FN_BOX_HULL
+};
 
 enum Kind { KIND_STATIC, KIND_KINEMATIC, KIND_FREE, KIND_ROBOT_LINK };
 
@@ -180,20 +195,98 @@ __device__ __forceinline__ V3 face_local(V3 half, int f) {
 
 struct Contact { V3 pos, nrm; float dep; };
 
+// One env's hull tables in the input plane: `col` is this env's column
+// (row r at col[r * Ks]). Slot s's contact point p is rows
+// R_HVERTS + 3 (s HULL_P + p) + c, its face f rows R_HFACES + 4 (s HULL_F + f)
+// + c (c: nx, ny, nz, d). They are read in place, face by face, where a
+// hull point needs them: neighbouring threads read neighbouring addresses,
+// nothing is copied into thread-local memory, and no register holds them
+// across the point loop.
+__device__ __forceinline__ V3 hull_point(const float* col, size_t Ks, const int* mi, int slot,
+                                         int p) {
+  const float* r = col + (size_t)(mi[R_HVERTS] + 3 * (slot * HULL_P + p)) * Ks;
+  return mk3(r[0], r[Ks], r[2 * Ks]);
+}
+
+__device__ __forceinline__ const float* hull_faces(const float* col, size_t Ks, const int* mi,
+                                                   int slot) {
+  return col + (size_t)(mi[R_HFACES] + 4 * HULL_F * slot) * Ks;
+}
+
+// x nx + y ny + z nz - d of face row f (rows f, f + Ks, f + 2 Ks, f + 3 Ks),
+// rounded operation by operation (no FMA), as the plain version computes
+// it: the max pass and the one-hot pass of hull_sdf then see the same
+// value, and a tie breaks as it does there
+__device__ __forceinline__ float face_dist(V3 p, const float* f, size_t Ks) {
+  return __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(p.x, f[0]), __fmul_rn(p.y, f[Ks])),
+                             __fmul_rn(p.z, f[2 * Ks])),
+                   f[3 * Ks]);
+}
+
+// point vs convex hull (shapes._hull_sdf): the largest face distance, and
+// the normalised mean of the normals of every face that attains it (an
+// edge point gets the two faces' mean). Padding faces sit at d = 1e6 and
+// never attain it.
+__device__ __noinline__ void hull_sdf(V3 p, const float* faces, size_t Ks, float* sdf,
+                                         V3* n) {
+  float best = face_dist(p, faces, Ks);
+  for (int f = 1; f < HULL_F; ++f) best = fmaxf(best, face_dist(p, faces + (size_t)4 * f * Ks, Ks));
+  float cnt = 0.0f;
+  V3 acc = mk3(0.0f, 0.0f, 0.0f);
+  for (int f = 0; f < HULL_F; ++f) {
+    const float* fr = faces + (size_t)4 * f * Ks;
+    if (face_dist(p, fr, Ks) >= best) {
+      cnt += 1.0f;
+      acc = add(acc, mk3(fr[0], fr[Ks], fr[2 * Ks]));
+    }
+  }
+  const V3 m = scl(acc, 1.0f / cnt);
+  const float inv = 1.0f / fmaxf(sqrtf(dot(m, m)), 1e-9f);
+  *sdf = best;
+  *n = scl(m, inv);
+}
+
 // candidate point `c` of one pair (shapes.plane_box / box_box_onesided /
-// box_box_corners / box_box); normal from B toward A, depth > 0 when
-// penetrating. box_box: points 0-7 are A's corners and 8-13 A's face
-// centres against B, 14-27 the same of B against A with the normal negated
+// box_box_corners / box_box / plane_hull / box_hull); normal from B toward
+// A, depth > 0 when penetrating. box_box: points 0-7 are A's corners and
+// 8-13 A's face centres against B, 14-27 the same of B against A with the
+// normal negated. box_hull: points 0-7 are the box's corners against the
+// hull's faces, 8-47 the hull's contact cloud against the box with the
+// normal negated. plane_hull: the hull's contact cloud against the plane.
 __device__ __forceinline__ Contact contact_point(int fn, int ga, int gb, int c,
                                                  const V3* gp, const Q4* gq,
-                                                 const V3* gsz) {
+                                                 const V3* gsz, const int* ghull,
+                                                 const float* col, size_t Ks,
+                                                 const int* mi) {
   Contact ct;
-  if (fn == FN_PLANE_BOX) {
+  if (fn == FN_PLANE_BOX || fn == FN_PLANE_HULL) {
     V3 n = qapply(gq[ga], mk3(0.0f, 0.0f, 1.0f));
-    V3 corner = add(gp[gb], qapply(gq[gb], corner_local(gsz[gb], c)));
-    ct.pos = corner;
+    const V3 local = fn == FN_PLANE_BOX ? corner_local(gsz[gb], c)
+                                        : hull_point(col, Ks, mi, ghull[gb], c);
+    V3 w = add(gp[gb], qapply(gq[gb], local));
+    ct.pos = w;
     ct.nrm = scl(n, -1.0f);
-    ct.dep = -dot(sub(corner, gp[ga]), n);
+    ct.dep = -dot(sub(w, gp[ga]), n);
+    return ct;
+  }
+  if (fn == FN_BOX_HULL) {
+    const int slot = ghull[gb];
+    float sdf;
+    V3 nl;
+    if (c < 8) {
+      V3 corner = add(gp[ga], qapply(gq[ga], corner_local(gsz[ga], c)));
+      V3 loc = qapply(qconj(gq[gb]), sub(corner, gp[gb]));
+      hull_sdf(loc, hull_faces(col, Ks, mi, slot), Ks, &sdf, &nl);
+      ct.pos = corner;
+      ct.nrm = qapply(gq[gb], nl);
+    } else {
+      V3 w = add(gp[gb], qapply(gq[gb], hull_point(col, Ks, mi, slot, c - 8)));
+      V3 loc = qapply(qconj(gq[ga]), sub(w, gp[ga]));
+      point_box_sdf(loc, gsz[ga], &sdf, &nl);
+      ct.pos = w;
+      ct.nrm = scl(qapply(gq[ga], nl), -1.0f);
+    }
+    ct.dep = -sdf;
     return ct;
   }
   // a point of box a inside box b; the second half of box_box_corners and
@@ -295,6 +388,7 @@ __global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
   const int* prb = mi + mi[I_PRB];
   const int* pfa = mi + mi[I_PFA];
   const int* pfb = mi + mi[I_PFB];
+  const int* ghull = mi + mi[I_GHULL];
   const float* cmu = mf + mi[F_CMU];
   const float* dn0 = mf + mi[F_DN0];
 
@@ -432,7 +526,8 @@ __global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
     // ------- pass 1: forces at current velocities -> rhs + LHS coupling -------
     for (int p = 0; p < P; ++p) {
       PointCtx x;
-      x.ct = contact_point(pfn[p], pga[p], pgb[p], pcorner[p], gp, gq, gsz);
+      x.ct = contact_point(pfn[p], pga[p], pgb[p], pcorner[p], gp, gq, gsz, ghull, in + k, Ks,
+                         mi);
       const V3 pos = x.ct.pos, nrm = x.ct.nrm;
       const float dep = x.ct.dep;
       x.rel = sub(pos, ref);
@@ -647,7 +742,8 @@ __global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
     }
     for (int p = 0; p < P; ++p) {
       PointCtx x;
-      x.ct = contact_point(pfn[p], pga[p], pgb[p], pcorner[p], gp, gq, gsz);
+      x.ct = contact_point(pfn[p], pga[p], pgb[p], pcorner[p], gp, gq, gsz, ghull, in + k, Ks,
+                         mi);
       const V3 pos = x.ct.pos, nrm = x.ct.nrm;
       const float dep = x.ct.dep;
       x.rel = sub(pos, ref);

@@ -1,2 +1,4 @@
 from . import pick_cube  # noqa: F401
+from . import pick_single_hull  # noqa: F401
 from . import stack_cube  # noqa: F401
+from . import ycb_variants  # noqa: F401

@@ -25,21 +25,22 @@ from ..scene_builders import TABLE_HEIGHT, TableSceneBuilder
 
 def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
                gen: torch.Generator) -> torch.Tensor:
-    """``qpos`` with the arm moved so the TCP grasps a 2 cm cube at pose
+    """``qpos`` with the arm moved so the TCP grasps the object at pose
     ``cube`` (K, 7) from above: damped least-squares IK puts the TCP on the
-    cube's axis, pointing down, 2-12 mm below its centre (drawn from
-    ``gen``), with the fingers across two faces. The gripper joints are
-    left as they are."""
+    object's vertical axis, pointing down, 2-12 mm below its centre (drawn
+    from ``gen``), with the fingers closing along the object's y axis, or
+    its x axis where the yaw is folded by an odd number of quarter turns
+    (``_closing_half``). The gripper joints are left as they are."""
     model, spec, dev = env.model, env.model.robot, env.device
     K = qpos.shape[0]
     base = const(model, "robot_base_pose", model.robot_base_pose, dev)
     tcp = spec.frame_of(env.agent.ee_link_name)[0]
     arm = np.arange(7)
     qlim = torch.as_tensor(model.robot_qlim, device=dev)
-    # the cube's yaw (reset cubes are yaw-only) folded into [-pi/4, pi/4]:
-    # a quarter turn maps the cube onto itself and keeps the wrist in range
-    yaw = 2.0 * torch.atan2(cube[:, 6], cube[:, 3])
-    yaw = yaw - (math.pi / 2) * torch.round(yaw / (math.pi / 2))
+    # the object's yaw (reset objects are yaw-only) folded into
+    # [-pi/4, pi/4]: a quarter turn keeps the wrist in range
+    yaw, turns = _yaw_fold(cube)
+    yaw = yaw - (math.pi / 2) * turns
     ez = torch.zeros(K, 3, device=dev)
     ez[:, 2] = 1.0
     down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=dev)  # TCP +z -> world -z
@@ -62,6 +63,20 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
         qpos[:, :7] = torch.clamp(qpos[:, :7] + dq[..., 0].clamp(-0.2, 0.2),
                                   qlim[:7, 0], qlim[:7, 1])
     return qpos
+
+
+def _yaw_fold(pose: torch.Tensor):
+    """Yaw of yaw-only poses (K, 7) and its nearest number of quarter turns."""
+    yaw = 2.0 * torch.atan2(pose[:, 6], pose[:, 3])
+    return yaw, torch.round(yaw / (math.pi / 2))
+
+
+def _closing_half(pose: torch.Tensor, half: torch.Tensor) -> torch.Tensor:
+    """(K, 1) half extent of an object with AABB half extents ``half``
+    (K, 3) along the fingers' closing direction of ``grasp_qpos``: its y
+    axis, or its x axis after an odd number of quarter turns."""
+    odd = torch.remainder(_yaw_fold(pose)[1], 2) != 0
+    return torch.where(odd, half[:, 0], half[:, 1])[:, None]
 
 
 @register_env("PickCube-v1", max_episode_steps=50)
@@ -121,13 +136,14 @@ class PickCubeEnv(BaseEnv):
         Damped least-squares IK puts the TCP on the cube (pointing down, 2-12
         mm below its centre, so the fingertips reach within the contact
         margin of the table, fingers across two faces) and the fingers close
-        0-1 mm into it. Every fourth env instead drops its cube on the floor
-        beyond the table's far edge. Joint and cube velocities are random,
-        the arm holds its pose and the gripper shuts; one control step of
-        the plain physics step then loads the warm-start impulses. Points of
-        all three pair functions (finger-cube, finger-table, cube-table,
-        cube-floor) carry force, with friction, from such states, so checks
-        of the physics step start from them."""
+        0-1 mm into it, sized by each env's own object (``geom_size``: its
+        AABB half extents). Every fourth env instead drops its cube on the
+        floor beyond the table's far edge. Joint and cube velocities are
+        random, the arm holds its pose and the gripper shuts; one control
+        step of the plain physics step then loads the warm-start impulses.
+        Points of all three pair functions (finger-cube, finger-table,
+        cube-table, cube-floor) carry force, with friction, from such
+        states, so checks of the physics step start from them."""
         dev = self.device
         sim = state.sim
         K = sim.qpos.shape[0]
@@ -135,9 +151,11 @@ class PickCubeEnv(BaseEnv):
         def uniform(shape, lo, hi):
             return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
-        qpos = grasp_qpos(self, sim.qpos, sim.free_pose[:, self.cube], gen)
-        qpos[:, 7:9] = uniform((K, 1), self.cube_half_size - 0.001,
-                               self.cube_half_size)
+        half = sim.geom_size[:, self.model.geom_indices("cube")[0]]  # (K, 3)
+        pose = sim.free_pose[:, self.cube]
+        qpos = grasp_qpos(self, sim.qpos, pose, gen)
+        width = _closing_half(pose, half)
+        qpos[:, 7:9] = uniform((K, 1), width - 0.001, width)
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
         free_vel = sim.free_vel.clone()
         free_vel[:, self.cube] = 0.05 * torch.randn(
@@ -146,7 +164,7 @@ class PickCubeEnv(BaseEnv):
         floor = torch.arange(K, device=dev) % 4 == 3
         table = TableSceneBuilder
         free_pose[floor, self.cube, 0] = float(table.TABLE_CENTER[0] + table.TABLE_HALF[0]) + 0.1
-        free_pose[floor, self.cube, 2] = self.cube_half_size - TABLE_HEIGHT
+        free_pose[floor, self.cube, 2] = half[floor, 2] - TABLE_HEIGHT
         sim = sim.replace(qpos=qpos, qvel=qvel, free_pose=free_pose, free_vel=free_vel)
         target = qpos.clone()
         target[:, 7:9] = 0.0  # the arm holds its pose, the gripper shuts

@@ -6,7 +6,8 @@ Builds ``csrc/megakernel.cu`` of this checkout and of the checkout at
 ``DIR`` (its root; only its ``maniskill_tpu_torch/csrc`` is read), packs
 one control step of K=4096 states of ``--task`` with this checkout's row
 plan, from reset states and from ``contact_state`` states, and runs both
-builds on the same input plane. It prints whether the two output planes
+builds on the same input plane, each with the static tables laid out by
+its own source's ``enum Header``. It prints whether the two output planes
 are bit-identical (and the largest difference if not), then the time per
 launch of each, in turns (parent, change, change, parent; CUDA events,
 median of ``--reps`` launches each). The parent must implement the task's
@@ -44,7 +45,10 @@ def main(argv=None):
     env = make(args.task, num_envs=4096, reward_mode="dense")
     env.reset(seed=0)
     plan = env.kernel.plan
-    mf, mi = (torch.as_tensor(a, device="cuda") for a in plan.tables())
+    sources = dict(parent=args.parent / "maniskill_tpu_torch" / "csrc" / "megakernel.cu",
+                   change=megakernel.SOURCE)
+    tabs = {n: [torch.as_tensor(a, device="cuda") for a in plan.tables(src)]
+            for n, src in sources.items()}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     cst = env.contact_state(env._state, gen)
@@ -55,6 +59,7 @@ def main(argv=None):
         outs = {n: torch.empty((plan.R_out, K), device="cuda") for n in libs}
 
         def run(name):
+            mf, mi = tabs[name]
             err = libs[name].mk_step(plane.data_ptr(), outs[name].data_ptr(), mf.data_ptr(),
                                      mi.data_ptr(), K, 5, megakernel.BLOCK, stream)
             if err:

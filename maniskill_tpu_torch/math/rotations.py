@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from . import clamps
+
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
@@ -15,7 +17,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(eps)
+    return q / clamps.maximum(torch.linalg.norm(q, dim=-1, keepdim=True), eps)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,13 @@ Port of ``maniskill_tpu/physics/engine.py``: ``robot_fk``,
 ``_assignment_tables`` (``:291``), ``point_forces`` (``:304``),
 ``make_force_query`` (``:494``), ``pair_force_signs``, ``make_step_fn`` and
 its ``substep`` (``:537-1125``) and ``_trace_metadata`` (``:1127``). Not
-ported yet: actor-pair drives (``:919-1041``) and the legacy spring contact
-mode.
+ported yet: actor-pair drives (``:919-1041``), the hull-hull pairs (only
+hull against plane and box is) and the legacy spring contact mode.
+
+Clamps and maxima on the differentiated path go through ``math.clamps``,
+which gives JAX's derivative at a tie (0.5/0.5), so the step's tangents
+equal the JAX step's also where a state sits exactly on a bound (a body
+resting at zero depth, a gripper joint at its limit).
 
 The JAX functions are single-env and vmapped; here every function takes the
 batch dimension K leading. This step is the plain version of the CUDA
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from .._consts import const
+from ..math import clamps
 from ..kinematics import chain
 from ..kinematics.urdf import JOINT_REVOLUTE
 from ..math.rotations import (_cross, quat_apply, quat_exp, quat_mul,
@@ -123,8 +129,13 @@ def compute_contacts(model: SceneModel, state: SimState, body_pos, body_quat):
     for (fn, npts, ia_arr, ib_arr, _mu) in model.pair_groups:
         ia = const(model, f"ia:{fn.__name__}", ia_arr, dev, torch.long)
         ib = const(model, f"ib:{fn.__name__}", ib_arr, dev, torch.long)
-        c = fn(gpos[:, ia], gquat[:, ia], gsize[:, ia],
-               gpos[:, ib], gquat[:, ib], gsize[:, ib])  # (K, n_pairs, npts, ...)
+        args = [gpos[:, ia], gquat[:, ia], gsize[:, ia], gpos[:, ib], gquat[:, ib], gsize[:, ib]]
+        if getattr(fn, "hull_args", None) is not None:
+            # hull pairs also take the hull side's per-env contact cloud and
+            # face planes: static slot gathers (engine.py:216-229)
+            hb = const(model, f"hb:{fn.__name__}", model.geom_hull_slot[ib_arr], dev, torch.long)
+            args += [state.hull_verts[:, hb], state.hull_faces[:, hb]]
+        c = fn(*args)  # (K, n_pairs, npts, ...)
         K = c.pos.shape[0]
         pos_l.append(c.pos.reshape(K, -1, 3))
         nrm_l.append(c.normal.reshape(K, -1, 3))
@@ -200,10 +211,10 @@ def point_forces(model: SceneModel, state: SimState, body_pos, body_quat,
     v_n, v_t = point_vels(v_body, state.free_vel)
     active = (cdep > -params.contact_margin).to(cdep.dtype)
     d_n0 = ck * h / params.contact_beta
-    pen_bias = torch.clamp_max(
-        params.contact_beta * torch.clamp_min(cdep, 0.0) / h,
+    pen_bias = clamps.minimum(
+        params.contact_beta * clamps.maximum(cdep, 0.0) / h,
         params.contact_bias_max)
-    spec = torch.clamp_max(cdep, 0.0) / h
+    spec = clamps.minimum(cdep, 0.0) / h
     t_vel = spec
     t_pos = spec + pen_bias
     lam = state.contact_lam
@@ -211,12 +222,12 @@ def point_forces(model: SceneModel, state: SimState, body_pos, body_quat,
     lam_t = lam_t - torch.sum(lam_t * cnrm, dim=-1, keepdim=True) * cnrm
 
     def forces_at(v_n_, v_t_):
-        f_n_vel_ = torch.clamp_min(lam + d_n0 * (t_vel - v_n_), 0.0) * active
-        f_n_pos_ = torch.clamp_min(lam + d_n0 * (t_pos - v_n_), 0.0) * active
+        f_n_vel_ = clamps.maximum(lam + d_n0 * (t_vel - v_n_), 0.0) * active
+        f_n_pos_ = clamps.maximum(lam + d_n0 * (t_pos - v_n_), 0.0) * active
         f_t_trial = lam_t - d_n0[:, None] * v_t_
         trial_norm = torch.sqrt(torch.sum(f_t_trial * f_t_trial, dim=-1) + 1e-18)
         cap = cmu * f_n_pos_
-        f_t_ = f_t_trial * torch.clamp_max(cap / trial_norm, 1.0)[..., None]
+        f_t_ = f_t_trial * clamps.minimum(cap / trial_norm, 1.0)[..., None]
         return f_n_vel_, f_n_pos_, f_t_, trial_norm <= cap
 
     f_n_vel, f_n_pos, f_t, sticking = forces_at(v_n, v_t)
@@ -231,8 +242,8 @@ def point_forces(model: SceneModel, state: SimState, body_pos, body_quat,
         f_n_vel2, _, f_t2, _ = forces_at(v_n2, v_t2)
         a = params.contact_relax
         # memory only for touching points, ramped over 1 mm
-        touch = torch.clamp(1.0 + cdep / 1e-3, 0.0, 1.0)
-        lam2 = torch.clamp_min((1 - a) * lam + a * f_n_vel2, 0.0) * touch
+        touch = clamps.clip(1.0 + cdep / 1e-3, 0.0, 1.0)
+        lam2 = clamps.maximum((1 - a) * lam + a * f_n_vel2, 0.0) * touch
         lam_t2 = ((1 - a) * lam_t + a * f_t2) * touch[..., None]
         return lam2, lam_t2
 
@@ -443,18 +454,18 @@ def make_step_fn(model: SceneModel):
         kd_d = cmd.kd if cmd.kd is not None else c("drive_kd", model.drive_kd, dev)
         flim_d = (cmd.force_limit if cmd.force_limit is not None
                   else c("drive_flim", model.drive_force_limit, dev))
-        tau_drive = torch.clamp(
+        tau_drive = clamps.clip(
             kp_d * (cmd.target_qpos - state.qpos)
             + kd_d * (cmd.target_qvel - state.qvel), -flim_d, flim_d)
         qlim = c("robot_qlim", model.robot_qlim, dev)
-        viol_low = torch.clamp_min(qlim[:, 0] - state.qpos, 0.0)
-        viol_high = torch.clamp_min(state.qpos - qlim[:, 1], 0.0)
+        viol_low = clamps.maximum(qlim[:, 0] - state.qpos, 0.0)
+        viol_high = clamps.maximum(state.qpos - qlim[:, 1], 0.0)
         in_viol = ((viol_low > 0) | (viol_high > 0)).to(state.qpos.dtype)
         tau_lim = (params.joint_limit_stiffness * (viol_low - viol_high)
                    - params.joint_limit_damping * in_viol * state.qvel)
         fr = c("joint_friction", spec.joint_friction, dev)
         fvreg = params.joint_friction_vreg
-        sat = torch.clamp(state.qvel / fvreg, -1.0, 1.0)
+        sat = clamps.clip(state.qvel / fvreg, -1.0, 1.0)
         tau_fric = -fr * sat
         in_band = (torch.abs(state.qvel) < fvreg).to(state.qpos.dtype)
         diag = (h * (kp_d * h + kd_d)
@@ -525,8 +536,8 @@ def make_step_fn(model: SceneModel):
             def clamp_u(uu):
                 wn = torch.sqrt(torch.sum(uu[..., :3] ** 2, -1, keepdim=True) + 1e-18)
                 vn = torch.sqrt(torch.sum(uu[..., 3:] ** 2, -1, keepdim=True) + 1e-18)
-                ws = torch.clamp_max(params.max_ang_vel / wn, 1.0)
-                vs = torch.clamp_max(params.max_lin_vel / vn, 1.0)
+                ws = clamps.minimum(params.max_ang_vel / wn, 1.0)
+                vs = clamps.minimum(params.max_lin_vel / vn, 1.0)
                 return torch.cat([uu[..., :3] * ws, uu[..., 3:] * vs], dim=-1)
 
             u_new = clamp_u(u_new)

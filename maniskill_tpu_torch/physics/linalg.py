@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..math import clamps
+
 
 def _cholesky_cols(A: torch.Tensor):
     """cols[j] = L[j:, j] (..., n-j)."""
@@ -18,7 +20,7 @@ def _cholesky_cols(A: torch.Tensor):
         for k in range(j):
             ck = cols[k]
             s = s - ck[..., j - k:] * ck[..., j - k:j - k + 1]
-        s0 = torch.clamp_min(s[..., :1], 1e-12)
+        s0 = clamps.maximum(s[..., :1], 1e-12)
         cols.append(s * torch.rsqrt(s0))
     return cols
 

@@ -14,6 +14,11 @@ The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
 version is the PyTorch engine step (``engine.make_step_fn``), which the
 wrapper takes for CPU tensors only.
 
+Hull pairs (``plane_hull``, ``box_hull``) read each env's contact cloud
+and face planes from rows of the input plane after the drive gains, as the
+JAX plan does (``:310-311``, ``_pack`` ``:358-360``); mass, inertia,
+``geom_size`` and the hull tables are per-env rows, never static tables.
+
 ``KernelStep`` is the port of the JAX ``custom_jvp`` seam
 (``maniskill_tpu/envs/base_env.py:495-513``): a ``torch.autograd.Function``
 whose forward launches the kernel and whose derivatives, forward
@@ -34,27 +39,30 @@ from .. import _cuda
 from .._consts import const
 from .engine import (_assignment_tables, _trace_metadata, _v_body, joint_columns,
                      make_step_fn, point_forces, robot_fk)
+from .hulls import HULL_F, HULL_P
 from .model import BodyKind, DriveCmd, SceneModel, SimState
 
 SOURCE = _cuda.CSRC / "megakernel.cu"
 BLOCK = 32  # threads per block: K=4096 envs -> 128 blocks over 132 SMs
 
 # pair functions the kernel implements, in the order of its PairFn enum
-_FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box")
+_FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box", "plane_hull",
+        "box_hull")
 
 
 @functools.lru_cache(maxsize=None)
 def _caps():
-    """Compile-time caps of the kernel's thread-local arrays (#defines)."""
+    """Compile-time sizes of the kernel (#defines): the caps of its
+    thread-local arrays and the padded hull table sizes."""
     src = SOURCE.read_text()
     return {n: int(re.search(rf"#define {n} (\d+)", src).group(1))
-            for n in ("NB_MAX", "NALL_MAX", "G_MAX", "F_MAX")}
+            for n in ("NB_MAX", "NALL_MAX", "G_MAX", "F_MAX", "HULL_P", "HULL_F")}
 
 
 @functools.lru_cache(maxsize=None)
-def _enum(name: str):
+def _enum(name: str, source=SOURCE):
     """Member names of a C enum in the kernel source, in order."""
-    src = SOURCE.read_text()
+    src = source.read_text()
     body = re.search(rf"enum {name} \{{(.*?)\}};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     return tuple(t.strip() for t in body.split(",") if t.strip())
@@ -62,9 +70,10 @@ def _enum(name: str):
 
 def supports(model: SceneModel) -> bool:
     """Whether the CUDA kernel covers this model: velocity contact mode, one
-    robot tree, pair functions among those the kernel implements, and sizes
-    within its compile-time caps. (The port's ``SceneModel`` has no pair
-    drives or hulls yet, so they need no test here.)"""
+    robot tree, pair functions among those the kernel implements, hull
+    tables of the kernel's padded sizes, and sizes within its compile-time
+    caps. (The port's ``SceneModel`` has no pair drives yet, so they need
+    no test here.)"""
     caps = _caps()
     if model.params.contact_mode != "velocity" or model.robot is None:
         return False
@@ -73,6 +82,9 @@ def supports(model: SceneModel) -> bool:
     for (fn, *_rest) in model.pair_groups:
         if fn.__name__ not in _FNS:
             return False
+    if (model.hull_verts0.shape[1:] != (caps["HULL_P"], 3)
+            or model.hull_faces0.shape[1:] != (caps["HULL_F"], 4)):
+        return False
     n_all = model.nq + 6 * model.n_free
     return (model.nq <= caps["NB_MAX"] and n_all <= caps["NALL_MAX"]
             and len(model.geoms) <= caps["G_MAX"] and model.n_free <= caps["F_MAX"])
@@ -116,6 +128,11 @@ class _Plan:
         self.i_kp = take(nq)
         self.i_kd = take(nq)
         self.i_flim = take(nq)
+        # per-env hull tables, slot-major (SimState.hull_verts/hull_faces
+        # flattened), after the drive gains as in the JAX plan
+        self.n_hull = model.n_hull
+        self.i_hverts = take(3 * HULL_P * model.n_hull)
+        self.i_hfaces = take(4 * HULL_F * model.n_hull)
         self.R_in = off
         off = 0
         self.o_qpos = take(nq)
@@ -160,9 +177,11 @@ class _Plan:
         self.dn0 = (np.asarray(ck, np.float32) * np.float32(h)
                     / np.float32(params.contact_beta)).astype(np.float32)
 
-    def tables(self):
+    def tables(self, source=SOURCE):
         """(mf float32, mi int32): the static model tables and the header
-        that locates them (layout from the kernel's ``enum Header``)."""
+        that locates them (layout from the ``enum Header`` of the kernel
+        source ``source``: this package's, or another checkout's for an
+        A/B run). Tables that source's header does not name are left out."""
         model = self.model
         spec = model.robot
         params = model.params
@@ -178,7 +197,7 @@ class _Plan:
                    P_FVREG=params.joint_friction_vreg,
                    P_MAX_W=params.max_ang_vel, P_MAX_V=params.max_lin_vel)
         ftabs = dict(
-            F_PARAMS=[prm[n] for n in _enum("Param") if n != "P_COUNT"],
+            F_PARAMS=[prm[n] for n in _enum("Param", source) if n != "P_COUNT"],
             F_GRAVITY=params.gravity, F_BASE=model.robot_base_pose,
             F_JPOS=spec.joint_pos, F_AQ=Aq, F_BQ=Bq, F_JAXIS=spec.axis,
             F_MASS=spec.mass, F_COM=spec.com, F_ICOM=model.robot_inertia_com,
@@ -192,8 +211,9 @@ class _Plan:
             I_GBODY=[int(g.body) for g in model.geoms],
             I_PFN=self.pfn, I_PGA=self.pga, I_PGB=self.pgb,
             I_PCORNER=self.pcorner, I_PRA=self.pra, I_PRB=self.prb,
-            I_PFA=self.pfa, I_PFB=self.pfb)
-        names = [n for n in _enum("Header") if n != "H_COUNT"]
+            I_PFA=self.pfa, I_PFB=self.pfb, I_GHULL=model.geom_hull_slot)
+        names = [n for n in _enum("Header", source) if n != "H_COUNT"]
+        itabs = {n: a for n, a in itabs.items() if n in names}
         head = dict(H_NQ=self.nq, H_F=self.F, H_NK=self.nk, H_G=self.G, H_P=self.P)
         fparts, ioff = [], len(names)
         foff = 0
@@ -234,6 +254,12 @@ OPS = dict(
     box_box_onesided=140,  # corner in the world, into B's frame, box SDF and normal, back out
     box_box_corners=142,   # the same; half the points negate the normal
     box_box=142,        # the same: a face centre costs what a corner does
+    plane_hull=49,      # contact point in the world (rotate, translate), depth against the plane, normal
+    box_hull_corner=498,  # box corner into the hull frame and back out (100, as box_box_onesided
+    #                       without its box SDF), hull SDF 398: 32 face distances x nx + y ny + z nz - d
+    #                       (6 each) and 31 maxima; per face a tie test, a count and a normal sum (5);
+    #                       the mean normal and its normalisation (15)
+    box_hull_vertex=140,  # hull point into the world and the box frame, box SDF and normal, negated
     point_inactive=1,   # the margin test: no force, and the warm start resets to 0
     point_active=134,   # context 22, force law 2×30, gate and gains 31, warm-start update 21
     vel_robot_side=12,  # v + ω × r of the side's robot body, per contact pass
@@ -287,7 +313,10 @@ def work(plan: _Plan, state: SimState, cmd: DriveCmd, n_substeps: int):
              + int(n_anc.sum()) * OPS["mass_dof"]
              + int((n_anc * (n_anc + 1) // 2).sum()) * OPS["mass_pair"]
              + plan.F * OPS["free_body"] + _cholesky_ops(plan.n_all))
-    narrow = sum(OPS[fn] for fn in np.asarray(_FNS)[plan.pfn])
+    # a box_hull point is one of the box's 8 corners against the hull, or
+    # one of the hull's points against the box
+    narrow = sum(OPS[fn + ("_corner" if c < 8 else "_vertex") if fn == "box_hull" else fn]
+                 for fn, c in zip(np.asarray(_FNS)[plan.pfn], plan.pcorner))
     # per active point: both contact passes' velocities of its two sides
     vel = (OPS["vel_robot_side"] * ((plan.pra >= 0).astype(int) + (plan.prb >= 0))
            + OPS["vel_free_side"] * ((plan.pfa >= 0).astype(int) + (plan.pfb >= 0)))
@@ -330,8 +359,8 @@ _ROW_NAMES = dict(
     QPOS="qpos", QVEL="qvel", FPOSE="free_pose", FVEL="free_vel", KIN="kin",
     GSIZE="gsize", GPOS="gpos", GQUAT="gquat", FMASS="fmass",
     FINERTIA="finertia", LAM="lam", LAMT="lamt", TQ="tq", TV="tv", QF="qf",
-    KP="kp", KD="kd", FLIM="flim", FPT="fpt", BPOS="bpos", BQUAT="bquat",
-    AXIS="axis")
+    KP="kp", KD="kd", FLIM="flim", HVERTS="hverts", HFACES="hfaces", FPT="fpt",
+    BPOS="bpos", BQUAT="bquat", AXIS="axis")
 
 
 def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
@@ -357,6 +386,8 @@ def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
         gains(cmd.kp, model.drive_kp), gains(cmd.kd, model.drive_kd),
         gains(cmd.force_limit, model.drive_force_limit),
     ]
+    if plan.n_hull > 0:
+        parts += [state.hull_verts.reshape(K, -1), state.hull_faces.reshape(K, -1)]
     flat = torch.cat([p.to(torch.float32) for p in parts], dim=1)
     return flat.t().contiguous()
 

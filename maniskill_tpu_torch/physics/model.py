@@ -1,12 +1,14 @@
 """Scene model: static scene description + batched simulation state.
 
-Port of ``maniskill_tpu/physics/model.py`` for the scene class PickCube
-and StackCube use (boxes, planes, free bodies; box-box pairs resolved as in
-``_build_pair_tables``, ``:336-373``): ``SimParams``, ``SimState``,
-``DriveCmd``, ``SceneModel`` and ``SceneSpecBuilder`` with
-``box_geom``/``plane_geom``. Not ported yet: convex hulls, capsules and
-spheres, articulated objects merged into a kinematic forest, and
-actor-pair drives.
+Port of ``maniskill_tpu/physics/model.py`` for the scene classes of
+PickCube, StackCube and PickSingleHull/YCB (boxes, planes, free bodies,
+free convex hulls; pairs resolved as in ``_build_pair_tables``,
+``:336-373``): ``SimParams``, ``SimState`` (with the per-env hull tables,
+``:164-169``), ``DriveCmd``, ``SceneModel`` (``hull_verts0``,
+``hull_faces0``, ``n_hull``, ``geom_hull_slot``, ``:249-266``) and
+``SceneSpecBuilder`` with ``box_geom``/``plane_geom`` and ``add_free_hull``
+(``:583-607``). Not ported yet: capsules and spheres, articulated objects
+merged into a kinematic forest, and actor-pair drives.
 
 ``SceneModel`` holds numpy constants (device-free). ``SimState`` and
 ``DriveCmd`` are dataclasses of tensors with the batch dimension K leading.
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..kinematics.urdf import RobotSpec, _pose_mul
+from .hulls import HULL_F, HULL_P
 from .shapes import GeomType, box_box_corners, box_box_onesided, contact_fn
 
 
@@ -44,6 +47,7 @@ class GeomSpec:
     offset_q: np.ndarray  # (4,)
     friction: float = 0.3
     name: str = ""
+    hull: int = -1  # slot into the per-env hull tables (gtype == HULL)
 
 
 @dataclass(frozen=True)
@@ -125,6 +129,9 @@ class SimState(_Struct):
     free_inertia: torch.Tensor  # (K, n_free, 3, 3) about CoM, body frame
     geom_pos: torch.Tensor  # (K, n_geoms, 3) geom-in-body offsets
     geom_quat: torch.Tensor  # (K, n_geoms, 4)
+    # per-env convex-hull tables (each env may hold a different object)
+    hull_verts: Optional[torch.Tensor] = None  # (K, n_hull, HULL_P, 3) contact cloud
+    hull_faces: Optional[torch.Tensor] = None  # (K, n_hull, HULL_F, 4) planes [n, d]
 
 
 @dataclass
@@ -160,7 +167,16 @@ class SceneModel:
         drive_force_limit: np.ndarray,
         init_qpos: np.ndarray,
         robot_gravity: bool = False,
+        hull_verts: Optional[np.ndarray] = None,  # (n_hull, HULL_P, 3)
+        hull_faces: Optional[np.ndarray] = None,  # (n_hull, HULL_F, 4)
     ):
+        self.hull_verts0 = (hull_verts.astype(np.float32) if hull_verts is not None
+                            else np.zeros((0, HULL_P, 3), np.float32))
+        self.hull_faces0 = (hull_faces.astype(np.float32) if hull_faces is not None
+                            else np.zeros((0, HULL_F, 4), np.float32))
+        self.n_hull = self.hull_verts0.shape[0]
+        # geom index -> hull slot (-1 for non-hull geoms)
+        self.geom_hull_slot = np.array([g.hull for g in geoms], np.int32)
         self.robot = robot
         self.robot_base_pose = robot_base_pose.astype(np.float32)
         self.free_names = free_names
@@ -276,7 +292,14 @@ class SceneModel:
                          else np.zeros((0, 3))),
             geom_quat=rep(np.stack([g.offset_q for g in self.geoms]) if G
                           else np.zeros((0, 4))),
+            hull_verts=rep(self.hull_verts0),
+            hull_faces=rep(self.hull_faces0),
         )
+
+    def geom_indices(self, name: str):
+        """Indices into the geom table (and ``SimState.geom_size`` rows) of
+        the geoms of the named body."""
+        return [i for i, g in enumerate(self.geoms) if g.name == name]
 
 
 class SceneSpecBuilder:
@@ -300,6 +323,9 @@ class SceneSpecBuilder:
         self.drive_force_limit = None
         self.init_qpos = None
         self._excluded_groups: list = []
+        # per-env convex hull tables (one slot per HULL geom)
+        self.hull_verts: List[np.ndarray] = []
+        self.hull_faces: List[np.ndarray] = []
 
     def _add_geoms(self, kind, idx, name, geoms):
         for g in geoms:
@@ -359,6 +385,28 @@ class SceneSpecBuilder:
         self.free_mass.append(mass)
         self.free_inertia.append(np.asarray(inertia, dtype=np.float32))
         self._add_geoms(BodyKind.FREE, idx, name, geoms)
+        return idx
+
+    def add_free_hull(self, name: str, asset, density: float = 1000.0,
+                      friction: float = 0.3) -> int:
+        """Free rigid body whose collision shape is a convex hull
+        (``physics/hulls.py`` ``HullAsset``). Its contact cloud (``cpts``,
+        HULL_P points) and face planes become per-env state, so a task can
+        give each env its own object. Returns the free-body index."""
+        idx = len(self.free_names)
+        self.free_names.append(name)
+        self.free_mass.append(asset.mass(density))
+        self.free_inertia.append(asset.inertia(density))
+        slot = len(self.hull_verts)
+        self.hull_verts.append(asset.cpts)  # the contact cloud, not the vertices
+        self.hull_faces.append(asset.faces)
+        self.geoms.append(GeomSpec(
+            kind=BodyKind.FREE, body=idx, gtype=GeomType.HULL,
+            size=np.asarray(asset.aabb_half, np.float32),
+            offset_p=np.zeros(3, np.float32),
+            offset_q=np.array([1, 0, 0, 0], np.float32),
+            friction=friction, name=name, hull=slot))
+        self._collision_enabled.append(True)
         return idx
 
     def add_kinematic_body(self, name: str, geoms: List[dict] = ()) -> int:
@@ -429,6 +477,8 @@ class SceneSpecBuilder:
             if self.drive_force_limit is not None else np.zeros(0),
             init_qpos=self.init_qpos if self.init_qpos is not None else np.zeros(0),
             robot_gravity=self.robot_gravity,
+            hull_verts=np.stack(self.hull_verts) if self.hull_verts else None,
+            hull_faces=np.stack(self.hull_faces) if self.hull_faces else None,
         )
 
 

@@ -4,8 +4,11 @@ Port of the box and plane parts of ``maniskill_tpu/physics/shapes.py``:
 ``plane_box`` (``:110``), the symmetric 28-point ``box_box`` (``:198``)
 with ``_FACE_DIRS`` and ``_box_face_centers`` (``:188-195``),
 ``box_box_corners`` (``:281``), ``box_box_onesided`` (``:301``) and their
-helpers ``_box_corners`` and ``_point_box_sdf``, plus ``contact_fn``. The
-sphere, capsule and convex-hull functions are not ported yet.
+helpers ``_box_corners`` and ``_point_box_sdf``; the convex-hull face-plane
+SDF ``_hull_sdf`` (``:325``), ``plane_hull`` (``:341``) and ``box_hull``
+(``:361``) with their ``hull_args`` tags; and ``contact_fn``. The sphere
+and capsule functions and ``sphere_hull``, ``capsule_hull`` and
+``hull_hull`` are not ported yet.
 
 Every pair function emits a fixed number of candidate points; inputs are
 poses ``p (..., 3)``, ``q (..., 4)`` and half sizes ``s (..., 3)``, outputs
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 from .._consts import const
+from ..math import clamps
 from ..math.rotations import quat_apply, quat_conjugate
+from .hulls import HULL_P
 
 
 class GeomType(IntEnum):
@@ -31,7 +36,8 @@ class GeomType(IntEnum):
     BOX = 2  # size = half extents
     CAPSULE = 3
     CYLINDER = 4
-    HULL = 5
+    HULL = 5  # padded contact-cloud + face-plane tables (physics/hulls.py);
+    #           size = AABB half extents
 
 
 class ContactPoints(NamedTuple):
@@ -73,10 +79,10 @@ def _unit_z(like: torch.Tensor) -> torch.Tensor:
 
 def _point_box_sdf(p_local: torch.Tensor, half: torch.Tensor):
     """Signed distance + outward normal (local frame) of points vs a box."""
-    q = torch.abs(p_local) - half
-    outside = torch.clamp_min(q, 0.0)
+    q = clamps.abs(p_local) - half
+    outside = clamps.maximum(q, 0.0)
     d_out = torch.sqrt(torch.sum(outside * outside, dim=-1) + 1e-18)
-    d_in = torch.clamp_max(torch.amax(q, dim=-1), 0.0)
+    d_in = clamps.minimum(torch.amax(q, dim=-1), 0.0)
     sdf = d_out + d_in
     sgn = torch.sign(p_local)
     n_out = outside * sgn
@@ -150,12 +156,69 @@ def box_box_onesided(pa, qa, sa, pb, qb, sb) -> ContactPoints:
     return ContactPoints(*_corners_in_box(pa, qa, sa, pb, qb, sb))
 
 
+# ---------------------------------------------------------------------------
+# convex hulls (padded contact-cloud + face-plane tables, physics/hulls.py)
+# ---------------------------------------------------------------------------
+
+
+def _hull_sdf(p_local: torch.Tensor, faces: torch.Tensor):
+    """Signed distance + outward normal of points vs a face-plane hull.
+
+    ``p_local (..., n, 3)`` in the hull frame, ``faces (..., Hf, 4)``
+    outward planes ``[n, d]`` with ``n·p <= d`` inside (padding planes sit
+    at d = 1e6). The SDF is the largest face distance; the normal averages
+    the normals of every face that attains it (a point on an edge gets the
+    mean of the two faces' normals), then is normalised. Each distance is
+    ``x nx + y ny + z nz - d`` in that order, as the CUDA kernel computes it
+    (the JAX function uses a matmul), so both break ties alike."""
+    f = faces[..., None, :, :]  # (..., 1, Hf, 4)
+    x, y, z = (p_local[..., i, None] for i in range(3))  # (..., n, 1)
+    d = x * f[..., 0] + y * f[..., 1] + z * f[..., 2] - f[..., 3]  # (..., n, Hf)
+    sdf = torch.amax(d, dim=-1)
+    m = (d >= sdf[..., None]).to(p_local.dtype)
+    acc = torch.sum(m[..., None] * f[..., :3], dim=-2)  # (..., n, 3)
+    n = acc * (1.0 / torch.sum(m, dim=-1))[..., None]
+    nn = clamps.maximum(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)), 1e-9)
+    return sdf, n * (1.0 / nn)
+
+
+def plane_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
+    """A = plane, B = hull: every contact-cloud point against the half-space."""
+    n = quat_apply(qa, _unit_z(pa))
+    w = pb[..., None, :] + quat_apply(qb[..., None, :], vb)  # (..., V, 3)
+    dist = torch.sum((w - pa[..., None, :]) * n[..., None, :], dim=-1)
+    return ContactPoints(w, (-n)[..., None, :].expand_as(w), -dist)
+
+
+def box_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
+    """A = box, B = hull: A's 8 corners against the hull SDF, then B's
+    contact-cloud points against the box SDF with the normal negated (B->A)."""
+    ca = _box_corners(pa, qa, sa)  # (..., 8, 3)
+    loc = quat_apply(quat_conjugate(qb)[..., None, :], ca - pb[..., None, :])
+    sdf_a, nl_a = _hull_sdf(loc, fb)
+    n_a = quat_apply(qb[..., None, :], nl_a)
+    w = pb[..., None, :] + quat_apply(qb[..., None, :], vb)  # (..., V, 3)
+    pos_b, n_b, d_b = _points_in_box(w, pa, qa, sa)
+    return ContactPoints(
+        torch.cat([ca, pos_b], dim=-2),
+        torch.cat([n_a, -n_b], dim=-2),
+        torch.cat([-sdf_a, d_b], dim=-1),
+    )
+
+
+# which sides of each hull pair function consume (verts, faces) tables
+plane_hull.hull_args = "b"
+box_hull.hull_args = "b"
+
+
 # (type_a, type_b) -> (fn, n_points). The model builder replaces box_box by
 # the one-sided or corners-only test where one side is fixed or a robot
 # link (model.py).
 PAIR_FUNCS = {
     (GeomType.PLANE, GeomType.BOX): (plane_box, 8),
     (GeomType.BOX, GeomType.BOX): (box_box, 28),
+    (GeomType.PLANE, GeomType.HULL): (plane_hull, HULL_P),
+    (GeomType.BOX, GeomType.HULL): (box_hull, 8 + HULL_P),
 }
 
 

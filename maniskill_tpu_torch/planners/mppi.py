@@ -13,7 +13,7 @@ draw.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -23,7 +23,10 @@ from ..physics.model import tree_map
 class MPPIConfig(NamedTuple):
     horizon: int = 50
     num_samples: int = 1024
-    sigma: float = 0.5  # exploration std in normalized action units
+    # exploration std in normalized action units: one for every action
+    # dimension, or one per dimension (held as an (A,) tensor, as the JAX
+    # MPPIState.sigma)
+    sigma: Union[float, Sequence[float]] = 0.5
     temperature: float = 0.5  # softmax temperature λ
     ctrl_cost: float = 0.0  # quadratic control cost per step
     noise_beta: float = 0.0  # OU temporal noise correlation (0 = white)
@@ -43,6 +46,8 @@ class MPPI:
         self.config = config
         self.action_dim = env.action_dim
         self.device = env.device
+        self.sigma = torch.as_tensor(config.sigma, dtype=torch.float32,
+                                     device=self.device).expand(self.action_dim).clone()
 
     def init(self, seed: int = 0) -> MPPIState:
         gen = torch.Generator(device=self.device)
@@ -75,7 +80,7 @@ class MPPI:
         for t in range(cfg.horizon):
             eps = beta * eps + (1.0 - beta * beta) ** 0.5 * white[:, t]
             smoothed.append(eps)
-        noise_s = torch.stack(smoothed, dim=1) * cfg.sigma
+        noise_s = torch.stack(smoothed, dim=1) * self.sigma
         controls = torch.clamp(ps.nominal[None] + noise_s, -1.0, 1.0)
         returns, succ = self._rollout(env_state, controls)
         returns = returns - cfg.ctrl_cost * torch.sum(controls * controls, dim=(1, 2))

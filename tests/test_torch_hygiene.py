@@ -9,6 +9,10 @@ import torch
 
 import maniskill_tpu_torch as mtt
 
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = """
@@ -19,6 +23,10 @@ import maniskill_tpu_torch.planners.cem, maniskill_tpu_torch.planners.ilqr
 import maniskill_tpu_torch.planners.mpc
 import maniskill_tpu_torch.physics.megakernel, maniskill_tpu_torch.physics.solve_kernel
 import maniskill_tpu_torch.envs.tasks.stack_cube, maniskill_tpu_torch.kernel_ab
+import maniskill_tpu_torch.envs.tasks.pick_single_hull, maniskill_tpu_torch.envs.tasks.ycb_variants
+import maniskill_tpu_torch.physics.hulls, maniskill_tpu_torch.utils.building
+import maniskill_tpu_torch.math.clamps
+maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))

@@ -1,7 +1,8 @@
-"""Rotations, poses, forward kinematics, the SPD solves and the reward
-shaping of the PyTorch port against the JAX package, on the same
-numpy-seeded inputs (float32; tolerance 2e-6 for single rotations, 2e-5 for
-the 9-body FK chain and the 15x15 solves)."""
+"""Rotations, poses, forward kinematics, the SPD solves, the reward
+shaping and the JAX-convention clamps of the PyTorch port against the JAX
+package, on the same numpy-seeded inputs (float32; tolerance 2e-6 for
+single rotations, 2e-5 for the 9-body FK chain and the 15x15 solves, 1e-7
+for the clamps' derivatives, which are 0, 0.5 or 1 times a tangent)."""
 import jax
 import jax.numpy as jnp
 import pytest
@@ -19,7 +20,11 @@ from maniskill_tpu_torch.envs import rewards as trewards
 from maniskill_tpu_torch.physics import linalg as tlinalg
 from maniskill_tpu_torch.kinematics import chain as tchain
 from maniskill_tpu_torch.kinematics.urdf import parse_urdf
-from maniskill_tpu_torch.math import pose as tpose, rotations as trot
+from maniskill_tpu_torch.math import clamps as tclamps, pose as tpose, rotations as trot
+
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
 
 
 def _quats(rng, n):
@@ -107,3 +112,45 @@ def test_reward_tolerance_matches_jax(sigmoid):
     got = trewards.tolerance(torch.as_tensor(x), 0.0, 1.0, margin=0.5, sigmoid=sigmoid)
     want = jrewards.tolerance(x, 0.0, 1.0, margin=0.5, sigmoid=sigmoid)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+
+
+_KINKS = {
+    "maximum": (lambda x, b: tclamps.maximum(x, b), lambda x, b: jnp.maximum(x, b)),
+    "minimum": (lambda x, b: tclamps.minimum(x, b), lambda x, b: jnp.minimum(x, b)),
+    "clip": (lambda x, b: tclamps.clip(x, b, b + 1.0), lambda x, b: jnp.clip(x, b, b + 1.0)),
+    "clamp_min": (lambda x, b: tclamps.clamp_min(x, 0.25), lambda x, b: jnp.maximum(x, 0.25)),
+    "clamp_max": (lambda x, b: tclamps.clamp_max(x, 0.25), lambda x, b: jnp.minimum(x, 0.25)),
+    "abs": (lambda x, b: tclamps.abs(x - b), lambda x, b: jnp.abs(x - b)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_KINKS))
+def test_clamps_take_jax_derivatives_at_ties(name):
+    """``math.clamps`` against ``jnp.maximum``/``minimum``/``clip``/``abs``:
+    the primal equals the torch op's bit for bit, and the forward-mode
+    (``torch.func.jvp`` against ``jax.jvp``) and reverse-mode (autograd
+    against ``jax.vjp``) derivatives with respect to both arguments equal
+    JAX's at ties, at both clip bounds and off them (0.5/0.5 at a tie,
+    +1 for |x| at 0; ``torch.clamp`` would pass 1 at a bound)."""
+    tfn, jfn = _KINKS[name]
+    b = np.array([0.25, 0.25, 0.25, 0.25, 0.25, 0.25], np.float32)
+    x = np.array([0.25, 1.25, -0.5, 0.3, 2.0, 0.0], np.float32)  # ties and bounds first
+    tx, tb = np.float32([1.0, -2.0, 0.5, 3.0, 1.5, -1.0]), np.float32([0.5, 1.0, -1.0, 2.0, 0.0, 1.0])
+    T = torch.as_tensor
+    ref = {"maximum": torch.maximum(T(x), T(b)), "minimum": torch.minimum(T(x), T(b)),
+           "clip": torch.clamp(T(x), T(b), T(b) + 1.0), "clamp_min": torch.clamp_min(T(x), 0.25),
+           "clamp_max": torch.clamp_max(T(x), 0.25), "abs": torch.abs(T(x) - T(b))}[name]
+    assert torch.equal(tfn(T(x), T(b)), ref)
+    y_j, dy_j = jax.jvp(jfn, (x, b), (tx, tb))
+    y_t, dy_t = torch.func.jvp(tfn, (T(x), T(b)), (T(tx), T(tb)))
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    np.testing.assert_allclose(dy_t.numpy(), np.asarray(dy_j), rtol=0, atol=1e-7)
+    cot = np.float32([1.0, 2.0, -1.0, 0.5, 1.0, 3.0])
+    gx_j, gb_j = jax.vjp(jfn, x, b)[1](cot)
+    xs, bs = T(x).requires_grad_(), T(b).requires_grad_()
+    tfn(xs, bs).backward(T(cot))
+    np.testing.assert_allclose(xs.grad.numpy(), np.asarray(gx_j), rtol=0, atol=1e-7)
+    gb_t = bs.grad if bs.grad is not None else torch.zeros_like(bs)  # a scalar bound
+    np.testing.assert_allclose(gb_t.numpy(), np.asarray(gb_j), rtol=0, atol=1e-7)
+    if name in ("maximum", "minimum", "clip", "clamp_min"):
+        assert float(dy_j[0]) != float(tx[0])  # the tie does split the derivative

@@ -5,6 +5,7 @@ The kernel itself runs only on a CUDA device: ``test_kernel_matches_plain``
 is marked ``cuda`` and skips without one. On a GPU host run it with
 ``python -m pytest --noconftest tests/test_torch_megakernel.py -m cuda``.
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -13,8 +14,12 @@ import torch
 
 import maniskill_tpu_torch as mtt
 from maniskill_tpu_torch.physics import megakernel
-from maniskill_tpu_torch.physics import engine
+from maniskill_tpu_torch.physics import engine, hulls
 from maniskill_tpu_torch.physics.engine import make_step_fn
+
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
 
 K = 3
 
@@ -363,3 +368,125 @@ def test_stackcube_kernel_matches_plain(states):
         loaded = (aux_ref["f_pt"].abs().sum(-1) > 0).cpu().numpy()
         stacked = np.arange(37) % 2 == 0
         assert (loaded[stacked][:, :28].sum(1) >= 1).mean() >= 0.5
+
+
+@pytest.fixture(scope="module")
+def hull():
+    e = mtt.make("PickSingleHull-v1", num_envs=K, reward_mode="dense", device="cpu")
+    e.reset(seed=0)
+    return e
+
+
+def test_hull_pair_functions_and_table_sizes(hull):
+    """The hull members of the kernel's PairFn enum come after the box ones,
+    in the wrapper's order; ``supports`` takes both hull tasks and refuses a
+    model whose padded hull tables differ from the kernel's HULL_P/HULL_F."""
+    assert megakernel._FNS[4:] == ("plane_hull", "box_hull")
+    assert megakernel._enum("PairFn")[4:] == ("FN_PLANE_HULL", "FN_BOX_HULL")
+    caps = megakernel._caps()
+    assert (caps["HULL_P"], caps["HULL_F"]) == (hulls.HULL_P, hulls.HULL_F) == (40, 32)
+    assert megakernel.supports(hull.model)
+    assert megakernel.supports(mtt.make("PickSingleYCB-v1", num_envs=1, device="cpu").model)
+    for name, cut in (("hull_verts0", np.s_[:, :24]), ("hull_faces0", np.s_[:, :16])):
+        m = copy.copy(hull.model)
+        setattr(m, name, getattr(m, name)[cut])
+        assert not megakernel.supports(m), name
+
+
+def test_hull_rows_follow_the_drive_gains(hull):
+    """Each env's contact cloud and face planes ride the input plane after
+    the drive gains, slot-major and component-minor (the JAX ``_pack``);
+    the kernel finds them through the header and each geom's hull slot."""
+    plan = megakernel._Plan(hull.model)
+    st = hull._state
+    plane = megakernel.pack(plan, st.sim, st.cmd)
+    assert plan.R_in == plan.i_flim[1] + 3 * 40 + 4 * 32 == plane.shape[0]
+    np.testing.assert_array_equal(plane[plan.i_hverts[0]:plan.i_hverts[1]].T,
+                                  st.sim.hull_verts.reshape(K, -1))
+    np.testing.assert_array_equal(plane[plan.i_hfaces[0]:plan.i_hfaces[1]].T,
+                                  st.sim.hull_faces.reshape(K, -1))
+    assert len(set(st.extras["model_id"].tolist())) > 1  # rows differ per env
+    mf, mi = plan.tables()
+    names = [n for n in megakernel._enum("Header") if n != "H_COUNT"]
+    head = dict(zip(names, mi[:len(names)].tolist()))
+    assert (head["R_HVERTS"], head["R_HFACES"]) == (plan.i_hverts[0], plan.i_hfaces[0])
+    G = len(hull.model.geoms)
+    np.testing.assert_array_equal(mi[head["I_GHULL"]:head["I_GHULL"] + G],
+                                  hull.model.geom_hull_slot)
+
+
+def test_work_counts_hull_points(hull):
+    """The bound counts each hull point's narrowphase from the run's data:
+    a box corner against the hull's 32 faces, a hull point against a box,
+    a hull point against the plane. With nothing within the margin the
+    count differs from PickCube's (same robot, geoms and free body) by
+    exactly the narrowphase of their point sets; in contact it grows."""
+    plan = megakernel._Plan(hull.model)
+    st = hull._state
+    far = st.sim.replace(free_pose=st.sim.free_pose + torch.tensor([0, 0, 1.0, 0, 0, 0, 0]))
+    _, ops_far, counts_far = megakernel.work(plan, far, st.cmd, 1)
+    pick = mtt.make("PickCube-v1", num_envs=K, device="cpu")
+    pick.reset(seed=0)
+    pst = pick._state
+    pfar = pst.sim.replace(free_pose=pst.sim.free_pose + torch.tensor([0, 0, 1.0, 0, 0, 0, 0]))
+    _, ops_pick, counts_pick = megakernel.work(megakernel._Plan(pick.model), pfar, pst.cmd, 1)
+    assert counts_far["active"] == counts_pick["active"] == 0
+    O = megakernel.OPS
+    narrow_hull = (40 * O["box_box_onesided"] + 40 * O["plane_hull"]
+                   + 6 * (8 * O["box_hull_corner"] + 40 * O["box_hull_vertex"]))
+    narrow_pick = 80 * O["box_box_corners"] + 48 * O["box_box_onesided"] + 8 * O["plane_box"]
+    assert ops_far - ops_pick == K * (narrow_hull - narrow_pick + (368 - 136) * O["point_inactive"])
+    _, ops, counts = megakernel.work(plan, st.sim, st.cmd, 5)
+    cst = hull.contact_state(st, torch.Generator().manual_seed(0))
+    _, ops_c, counts_c = megakernel.work(plan, cst.sim, cst.cmd, 5)
+    assert counts["points"] == counts_c["points"] == 368 * K * 5
+    assert counts_c["loaded"] > counts["loaded"] > 0 and ops_c > ops > 5 * ops_far
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_hull_kernel_matches_plain(states):
+    """PickSingleHull-v1 (a convex hull per env, different objects) through
+    the CUDA kernel against the plain step on the card, K=37, from reset
+    states (every env within the tolerances of ``test_kernel_matches_plain``)
+    or ``contact_state`` states, refereed by a float64 plain step as in
+    ``test_stackcube_kernel_matches_plain``; in contact the fingers' box_hull
+    points carry force."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("PickSingleHull-v1", num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    assert len(set(st.extras["model_id"].tolist())) >= 6
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    got, aux = cenv.kernel(st.sim, cmd, 5)
+    ref, aux_ref = cenv.kernel.plain(st.sim, cmd, 5)
+    f64, aux64 = _in_float64(cenv.kernel.plain, _as64(st.sim), _as64(cmd), 5)
+    torch.cuda.synchronize()
+    assert cenv.kernel.launches == 1
+    names = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+                 contact_lam=5e-3, contact_lam_t=5e-3)
+    triples = [(getattr(got, n), getattr(ref, n), getattr(f64, n), tol)
+               for n, tol in names.items()]
+    triples += [(aux["f_pt"], aux_ref["f_pt"], aux64["f_pt"], 5e-3)]
+
+    def beyond(a, b, tol):
+        return (a.double() - b.double()).abs().reshape(37, -1).amax(1) > tol
+
+    for a, b, c, tol in triples:
+        assert torch.isfinite(a).all()
+        out = beyond(a, b, tol)
+        if states == "reset":
+            assert not out.any(), (out.nonzero().ravel(), tol)
+            continue
+        assert int(out.sum()) <= 0.1 * 37, (int(out.sum()), tol)
+        k64, p64 = int(beyond(a, c, tol).sum()), int(beyond(b, c, tol).sum())
+        assert k64 <= 1.5 * p64 + 2, (k64, p64, tol)
+    if states == "contact":
+        plan = cenv.kernel.plan
+        loaded = (aux_ref["f_pt"].abs().sum(-1) > 0).cpu().numpy()
+        finger = (plan.pfn == megakernel._FNS.index("box_hull")) & (plan.pra >= 0)
+        grasp = np.arange(37) % 4 != 3
+        assert (loaded[grasp][:, finger].sum(1) >= 2).mean() >= 0.5

@@ -24,9 +24,14 @@ from maniskill_tpu.planners.mppi import MPPI as JMPPI, MPPIConfig as JMPPIConfig
 
 import maniskill_tpu_torch as mtt
 from maniskill_tpu_torch import convert
+from maniskill_tpu_torch.math import clamps
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
+
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
 
 K = 4
 TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
@@ -205,3 +210,73 @@ def test_mppi_solve_nominal_matches(jenv, tenv):
     np.testing.assert_allclose(float(info_t["mean_return"]),
                                float(info_j["mean_return"]), atol=1e-4)
     np.testing.assert_allclose(ps_t.nominal.numpy(), np.asarray(ps_j2.nominal), atol=1e-4)
+
+
+def test_engine_jvp_at_reset_state_matches_jax(jenv, tenv, monkeypatch):
+    """Forward-mode derivative of one sim step of the plain engine step at
+    the JAX reset states, against ``jax.jvp`` of the JAX engine step, along
+    two seeded directions per env in (qpos, qvel, free_pose, free_vel).
+    The reset state sits on kinks: the cube rests at exactly zero depth
+    (the box SDF's ``min(max q, 0)``) and the gripper joints at their upper
+    limit (the joint-limit ``max(qpos - hi, 0)``), where JAX splits the
+    derivative 0.5/0.5, as ``math.clamps`` does. Tolerance: 1e-5 of each
+    output's largest tangent (float32 rounding of stiff contact terms).
+    With ``math.clamps`` swapped for torch's convention (the whole
+    derivative to ``x`` at a bound, as ``torch.clamp`` gives) the qvel and
+    impulse tangents leave by more than half their scale."""
+    names = ("qpos", "qvel", "free_pose", "free_vel")
+    outs = names + ("contact_lam", "contact_lam_t")
+    st = jenv._state
+    step = jeng.make_step_fn(jenv.model)
+    rng = np.random.default_rng(3)
+    tans = [{n: rng.normal(size=np.shape(getattr(st.sim, n))).astype(np.float32) for n in names}
+            for _ in range(2)]
+
+    def f(sim, cmd, *x):
+        new = step(sim.replace(**dict(zip(names, x))), cmd, 1)
+        return tuple(getattr(new, n) for n in outs)
+
+    def jvp_one(sim, cmd, *t):
+        return jax.jvp(lambda *x: f(sim, cmd, *x), tuple(getattr(sim, n) for n in names), t)[1]
+
+    jv = jax.jit(jax.vmap(jvp_one))
+    refs = [[np.asarray(r) for r in jv(st.sim, st.cmd, *[jnp.asarray(t[n]) for n in names])]
+            for t in tans]
+    sim_t = convert.sim_state_from_numpy(_np(st.sim))
+    cmd_t = convert.drive_cmd_from_numpy(_np(st.cmd))
+    tstep = teng.make_step_fn(tenv.model)
+
+    def rel_errors():
+        """Largest |port - JAX| tangent of each output over its scale."""
+        worst = dict.fromkeys(outs, 0.0)
+        for t, ref in zip(tans, refs):
+            _, got = torch.func.jvp(
+                lambda *x: tuple(getattr(tstep(sim_t.replace(**dict(zip(names, x))), cmd_t, 1), n)
+                                 for n in outs),
+                tuple(getattr(sim_t, n) for n in names),
+                tuple(torch.as_tensor(t[n]) for n in names))
+            for name, a, b in zip(outs, got, ref):
+                scale = max(np.abs(b).max(), 1e-3)
+                worst[name] = max(worst[name], float(np.abs(a.numpy() - b).max()) / scale)
+        return worst
+
+    worst = rel_errors()
+    assert max(worst.values()) <= 1e-5, worst
+
+    def whole_to_x(a, b):  # torch's convention: the derivative goes to a at a tie
+        b = b if isinstance(b, torch.Tensor) else torch.full_like(a, b)
+        return torch.where(a >= b, a, b)
+
+    def whole_to_x_min(a, b):
+        b = b if isinstance(b, torch.Tensor) else torch.full_like(a, b)
+        return torch.where(a <= b, a, b)
+
+    monkeypatch.setattr(clamps, "maximum", whole_to_x)
+    monkeypatch.setattr(clamps, "minimum", whole_to_x_min)
+    monkeypatch.setattr(clamps, "clip", lambda x, lo, hi: whole_to_x_min(whole_to_x(x, lo), hi))
+    torch_conv = rel_errors()
+    assert torch_conv["qvel"] > 0.5 and torch_conv["contact_lam"] > 0.5, torch_conv
+    # the reset state does sit on the kinks
+    np.testing.assert_array_equal(np.asarray(st.sim.qpos[:, 7:]),
+                                  np.broadcast_to(jenv.model.robot_qlim[7:, 1], (K, 2)))
+    assert np.asarray(jnp.abs(st.sim.free_pose[:, 0, 2] - 0.02)).max() == 0.0

@@ -41,6 +41,10 @@ from maniskill_tpu_torch.planners import (CEM, CEMConfig, CEMILQR, CEMILQRConfig
                                           ILQRConfig, make_planner, solve_task)
 from maniskill_tpu_torch.planners.ilqr import select_step
 
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
+
 
 def _np(obj):
     if dataclasses.is_dataclass(obj):
@@ -315,42 +319,125 @@ def test_ilqr_solve_matches_jax_stackcube(jenv, tenv):
     np.testing.assert_allclose(U_t.numpy(), np.asarray(U_j), atol=1e-3)
 
 
+def _corner_on_plane_trace(jenv, tenv, st_t, u):
+    """Per sim step of one control step from ``st_t`` with action ``u``,
+    each framework along its own float32 trajectory: the depth and the
+    normal force with the penetration bias (``f_pos . n``) at cubeA's corner
+    7 (+x +y +z) against cubeB, point 7 of the StackCube point list."""
+    from maniskill_tpu.physics import engine as jeng
+    from maniskill_tpu_torch.physics import engine as teng
+
+    cmd = tenv.agent.controller.set_action(st_t.cmd, st_t.sim.qpos, u)
+    jtp = jax.tree.map(lambda x: x[0], jenv._state)
+    js = jtp.sim.replace(**{k: jnp.asarray(v[0]) for k, v in convert.to_numpy(st_t.sim).items()})
+    jcmd = jtp.cmd.replace(**{k: jnp.asarray(v[0]) for k, v in convert.to_numpy(cmd).items()
+                              if v is not None})
+    jq, jstep = jeng.make_force_query(jenv.model), jax.jit(
+        lambda s_, c_: jeng.make_step_fn(jenv.model)(s_, c_, 1))
+    tq, tstep = teng.make_force_query(tenv.model), teng.make_step_fn(tenv.model)
+    ts, rows = st_t.sim, []
+    for _ in range(tenv.sim_steps_per_control):
+        fj, (_, nj, dj, _, _) = jq(js)
+        ft, (_, nt, dt, _, _) = tq(ts)
+        rows.append((float(dj[7]), float(jnp.dot(fj[7], nj[7])), float(dt[0, 7]),
+                     float(torch.dot(ft[0, 7], nt[0, 7]))))
+        js, ts = jstep(js, jcmd), tstep(ts, cmd, 1)
+    return rows
+
+
 @pytest.mark.slow
 def test_ilqr_full_jacobian_matches_jax_stackcube(jenv, tenv):
     """Slow: the full (A, B, cx, cu) of one step, from the port's batched
     forward-mode linearization, against ``jax.jacfwd``/``jax.grad`` of the
-    JAX dyn/cost, at the second step of a nominal rollout from the reset
-    state. The reset state itself sits on kinks (cubes resting at exactly
-    zero depth and zero velocity), where the derivative conventions of the
-    two frameworks differ (ROADMAP Queue C); one step later it does not."""
+    JAX dyn/cost, at the reset state itself and at the second step of a
+    nominal rollout from it. The reset state sits on kinks (cubes resting
+    at exactly zero depth and zero velocity, gripper joints at their
+    limit), where the port takes JAX's derivative convention
+    (``math.clamps``: 0.5/0.5 at a tie): there B, cu, and the robot's rows
+    of A and entries of cx agree in float32, and the whole A and cx of the
+    port's linearization run in float64 agree with JAX's in float32 and in
+    float64 (``jax_enable_x64``). The port's float32 A and cx differ in the
+    cubes' block only. This reset places the two cubes interpenetrating at
+    one height (the JAX placement rule, ROADMAP Queue C), so cubeA's top
+    corner 7 lies exactly on cubeB's top-face plane: JAX's float32 step
+    keeps it there (depth -1e-9, the SDF's regularizer), the port's float32
+    trajectory, one ulp of cube height away, puts it inside (depth > 0),
+    where the penetration bias ``max(depth, 0)`` gives it a normal force
+    and that force's stiffness enters the derivative. The test prints the
+    corner's depth and force per sim step in both frameworks and the sizes
+    of the differences (``-s``)."""
     U0 = torch.tensor(np.random.default_rng(5).uniform(-0.3, 0.3, (2, 8)).astype(np.float32))
     il = ILQR(tenv, ILQRConfig(horizon=2))
     traj, _ = il.rollout(convert.env_state_from_numpy(_np(jenv._state)), U0)
     xs = il.reduce(traj.sim)
     A_t, B_t, cx_t, cu_t = il.linearize(traj, xs, U0)
-    st1 = tree_map(lambda v: v[1:2], traj)
-    template = jax.tree.map(lambda x: x[0], jenv._state)
-    template = template.replace(
-        sim=template.sim.replace(**{k: jnp.asarray(v[0]) for k, v in
-                                    convert.to_numpy(st1.sim).items()}),
-        cmd=template.cmd.replace(**{k: jnp.asarray(v[0]) for k, v in
-                                    convert.to_numpy(st1.cmd).items() if v is not None}),
-        elapsed_steps=jnp.asarray(int(st1.elapsed_steps[0]), jnp.int32))
     nq, F = 9, 2
+    jac = None
+    for t in (0, 1):
+        st1 = tree_map(lambda v: v[t:t + 1], traj)
+        template = jax.tree.map(lambda x: x[0], jenv._state)
+        template = template.replace(
+            sim=template.sim.replace(**{k: jnp.asarray(v[0]) for k, v in
+                                        convert.to_numpy(st1.sim).items()}),
+            cmd=template.cmd.replace(**{k: jnp.asarray(v[0]) for k, v in
+                                        convert.to_numpy(st1.cmd).items() if v is not None}),
+            elapsed_steps=jnp.asarray(int(st1.elapsed_steps[0]), jnp.int32))
 
-    def dyn_cost(x, u):
-        sim = template.sim.replace(qpos=x[:nq], qvel=x[nq:2 * nq],
-                                   free_pose=x[2 * nq:2 * nq + 7 * F].reshape(F, 7),
-                                   free_vel=x[2 * nq + 7 * F:].reshape(F, 6))
-        st2, reward, _ = jenv._rollout_step(template.replace(sim=sim), u)
-        y = jnp.concatenate([st2.sim.qpos, st2.sim.qvel, st2.sim.free_pose.reshape(-1),
-                             st2.sim.free_vel.reshape(-1)])
-        return y, -reward + 1e-3 * jnp.sum(u * u)
+        def dyn_cost(x, u, template):
+            sim = template.sim.replace(qpos=x[:nq], qvel=x[nq:2 * nq],
+                                       free_pose=x[2 * nq:2 * nq + 7 * F].reshape(F, 7),
+                                       free_vel=x[2 * nq + 7 * F:].reshape(F, 6))
+            st2, reward, _ = jenv._rollout_step(template.replace(sim=sim), u)
+            y = jnp.concatenate([st2.sim.qpos, st2.sim.qvel, st2.sim.free_pose.reshape(-1),
+                                 st2.sim.free_vel.reshape(-1)])
+            return y, -reward + 1e-3 * jnp.sum(u * u)
 
-    x1, u1 = jnp.asarray(xs[1].numpy()), jnp.asarray(U0[1].numpy())
-    Jx, Ju = jax.jit(jax.jacfwd(lambda x, u: dyn_cost(x, u)[0], argnums=(0, 1)))(x1, u1)
-    gx, gu = jax.jit(jax.grad(lambda x, u: dyn_cost(x, u)[1], argnums=(0, 1)))(x1, u1)
-    for got, ref in ((A_t[1], Jx), (B_t[1], Ju), (cx_t[1], gx), (cu_t[1], gu)):
-        ref = np.asarray(ref)
-        assert np.isfinite(ref).all()
-        np.testing.assert_allclose(got.numpy(), ref, atol=2e-3 * max(1.0, np.abs(ref).max()))
+        if jac is None:  # one compile for both states: the template is an argument
+            jac = jax.jit(jax.jacfwd(lambda x, u, tp: dyn_cost(x, u, tp)[0], argnums=(0, 1)))
+            grad = jax.jit(jax.grad(lambda x, u, tp: dyn_cost(x, u, tp)[1], argnums=(0, 1)))
+        x1, u1 = jnp.asarray(xs[t].numpy()), jnp.asarray(U0[t].numpy())
+        Jx, Ju = jac(x1, u1, template)
+        gx, gu = grad(x1, u1, template)
+        robot = slice(0, 2 * nq)  # qpos, qvel rows of A / entries of cx
+        pairs = [(A_t[t], Jx, np.s_[:]), (B_t[t], Ju, np.s_[:]), (cx_t[t], gx, np.s_[:]),
+                 (cu_t[t], gu, np.s_[:])]
+        if t == 0:
+            pairs[0] = (A_t[t], Jx, robot)
+            pairs[2] = (cx_t[t], gx, robot)
+            scale = 2e-3 * max(1.0, np.abs(np.asarray(Jx)).max())
+            d = np.abs(A_t[t].numpy() - np.asarray(Jx))
+            beyond = d > scale
+            assert not beyond[:, robot].any()  # the robot's columns agree too
+            print(f"[reset state] float32 A entries beyond tolerance: {int(beyond.sum())} of "
+                  f"{beyond.size}, all in the cubes' rows and columns; largest {d.max():.1f}")
+            # the float64 witnesses: the port's linearization in float64 and
+            # jax.jacfwd with x64 side with JAX's float32 A everywhere
+            prev = torch.get_default_dtype()
+            torch.set_default_dtype(torch.float64)
+            try:
+                A64, _, cx64, _ = il.linearize(tree_map(
+                    lambda v: v.double() if v.is_floating_point() else v, traj),
+                    xs.double(), U0.double())
+            finally:
+                torch.set_default_dtype(prev)
+            with jax.enable_x64(True):
+                as64 = lambda tr: jax.tree.map(  # noqa: E731
+                    lambda a: a.astype(jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating)
+                    else a, tr)
+                J64 = np.asarray(jac(as64(x1), as64(u1), as64(template))[0])
+            for name, got in (("port float64", A64[0].numpy()), ("JAX float64", J64)):
+                np.testing.assert_allclose(got, np.asarray(Jx), atol=scale, err_msg=name)
+                print(f"[reset state] A {name} vs JAX float32: max |diff| "
+                      f"{np.abs(got - np.asarray(Jx)).max():.3g}")
+            np.testing.assert_allclose(cx64[0].numpy(), np.asarray(gx),
+                                       atol=2e-3 * max(1.0, np.abs(np.asarray(gx)).max()))
+            for i, (dj, fj, dt, ft) in enumerate(_corner_on_plane_trace(
+                    jenv, tenv, convert.env_state_from_numpy(_np(jenv._state)), U0[:1])):
+                print(f"[reset state] sim step {i}: cubeA corner 7 in cubeB: depth JAX "
+                      f"{dj:.6e} port {dt:.6e}, f_pos.n JAX {fj:.6e} port {ft:.6e}")
+        for got, ref, rows in pairs:
+            ref = np.asarray(ref)
+            assert np.isfinite(ref).all()
+            np.testing.assert_allclose(got.numpy()[rows], ref[rows],
+                                       atol=2e-3 * max(1.0, np.abs(ref).max()),
+                                       err_msg=f"step {t}")

@@ -19,6 +19,10 @@ import torch
 
 from maniskill_tpu_torch.physics import linalg, solve_kernel
 
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
+
 
 def _systems(K, n, seed=0):
     rng = np.random.RandomState(seed)

@@ -30,6 +30,10 @@ from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
 
+# one intra-op thread per process: the suite runs several pytest workers on
+# the cores, and torch's own thread pool on top of them thrashes small ops
+torch.set_num_threads(1)
+
 K = 4
 TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
            contact_lam=5e-3, contact_lam_t=5e-3)
@@ -256,3 +260,38 @@ def test_actor_vel(tenv):
     pick.reset(seed=0)
     zero = TaskContext(pick, pick._state).actor_vel("goal_site")
     assert zero.shape == (3, 6) and not zero.any()
+
+
+def test_reward_gradient_at_rest_zero_norm(jenv, tenv):
+    """The dense reward's gradient with cubeA exactly at rest (the reset
+    state): ``static_r`` norms cubeA's velocity (JAX ``stack_cube.py:138``),
+    and the gradient of ``jnp.linalg.norm`` at a zero vector is nan, which
+    reaches JAX's reward gradient through the ``where`` that masks the
+    branch (ROADMAP Queue C: a fault of the reference). The port keeps
+    torch's 0 there; the rewards themselves agree, and cubeB's entries
+    are 0 in both. The task flags are those of the reset state (nothing
+    grasped or stacked), given rather than evaluated."""
+    from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
+
+    st_j = jax.tree.map(lambda x: x[0], jenv._state)
+    assert not np.asarray(st_j.sim.free_vel).any()
+    flags = ("is_cubeA_grasped", "is_cubeA_on_cubeB", "success")
+
+    def reward_j(free_vel):
+        s = st_j.replace(sim=st_j.sim.replace(free_vel=free_vel))
+        info = {k: jnp.asarray(False) for k in flags}
+        return jenv.compute_dense_reward(s, jnp.zeros(8), info, JTaskContext(jenv, s))
+
+    r_j, g_j = jax.value_and_grad(reward_j)(st_j.sim.free_vel)
+    st_t = convert.env_state_from_numpy(_np(jax.tree.map(lambda x: x[:1], jenv._state)))
+    ev = tenv.evaluate(st_t, TaskContext(tenv, st_t))
+    assert not any(bool(ev[k].any()) for k in flags)
+    fv = st_t.sim.free_vel.clone().requires_grad_()
+    s = st_t.replace(sim=st_t.sim.replace(free_vel=fv))
+    info = {k: torch.zeros(1, dtype=torch.bool) for k in flags}
+    r_t = tenv.compute_dense_reward(s, torch.zeros(1, 8), info, TaskContext(tenv, s))
+    (g_t,) = torch.autograd.grad(r_t.sum(), fv)
+    np.testing.assert_allclose(float(r_t[0]), float(r_j), atol=1e-6)
+    g_j = np.asarray(g_j)
+    assert np.isnan(g_j[0]).all() and not g_j[1].any()  # cubeA: nan; cubeB: 0
+    assert torch.equal(g_t[0], torch.zeros(2, 6))
