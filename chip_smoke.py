@@ -12,9 +12,12 @@ Phases (each passes or ends the script with a non-zero exit):
      and StackCube-v1 (two free cubes: the free-free box_box pair) at
      K=4096, for PickSingleYCB-v1 at K=8192 (the plane its MPPI path
      launches) and for PickSingleHull-v1 at K=4096 (a convex hull per env,
-     all 8 library objects present: plane_hull and box_hull): one control
-     step (5 substeps) of states with perturbed drive targets, aux outputs
-     included, from
+     all 8 library objects present: plane_hull and box_hull), and for
+     PlugCharger-v1 (capsule prongs: capsule_box, plane_capsule,
+     capsule_capsule; 20 substeps a control step) and RollBall-v1 (a ball:
+     sphere_box, plane_sphere) at K=4096: one control step of states with
+     perturbed drive targets (the new tasks' contact states under their own
+     command), aux outputs included, from
      reset states and from states in contact (``contact_state``; the check
      fails unless every pair function and friction carry force there), then
      a 10-control-step settle check through the kernel alone; time the
@@ -29,6 +32,8 @@ Phases (each passes or ends the script with a non-zero exit):
   5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
      K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
      0.1): one warm-up solve and 5 timed solves, 50 kernel launches each;
+     then the PlugCharger-v1 and RollBall-v1 paths at the bench shape (H=50,
+     K=4096, sigma 0.6, temperature 0.3) the same way;
   6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
      iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 2
@@ -192,10 +197,73 @@ def hull_branches(env, plan, cst, loaded, depth):
     }
 
 
-def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005)):
+def plug_branches(env, plan, cst, loaded, depth):
+    """What must carry force in PlugCharger contact states (by env index
+    modulo 4: 0 held with the prongs on their slots' floors, 1 held
+    lengthwise with a finger on the prong tips, 2 held across the base on
+    the table, 3 on the floor: nose down on the prong tips where the index
+    modulo 8 is 3, flat where it is 7)."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    pfn = torch.as_tensor(plan.pfn, device=dev)
+    robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device=dev)
+    wall = torch.as_tensor([env.model.geoms[b].name == "receptacle" for b in plan.pgb], device=dev)
+    capsule_box = pfn == _FNS.index("capsule_box")
+    idx = torch.arange(loaded.shape[0], device=dev)
+    grasp = idx % 4 != 3
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: loaded capsule_box points against "
+          f"the receptacle {int(loaded[:, capsule_box & wall].sum())}, against a finger "
+          f"{int(loaded[:, capsule_box & robot].sum())}; plane_capsule "
+          f"{int(loaded[:, pfn == _FNS.index('plane_capsule')].sum())}")
+    return {
+        "prong-receptacle capsule_box loaded": loaded[idx % 4 == 0][:, capsule_box & wall].sum(1) >= 2,
+        "prong-finger capsule_box loaded": loaded[idx % 4 == 1][:, capsule_box & robot].sum(1) >= 1,
+        "finger-base box_box_corners loaded": loaded[grasp][:, pfn == _FNS.index("box_box_corners")].sum(1) >= 2,
+        "prong-floor plane_capsule loaded": loaded[idx % 8 == 3][:, pfn == _FNS.index("plane_capsule")].sum(1) >= 2,
+        "base-floor plane_box loaded": loaded[idx % 8 == 7][:, pfn == _FNS.index("plane_box")].sum(1) >= 2,
+        "friction lam_t nonzero (grasps)": lam_t[grasp].sum(1) >= 4,
+    }
+
+
+def roll_branches(env, plan, cst, loaded, depth):
+    """What must carry force in RollBall contact states (by env index: the
+    ball on a finger of the upturned hand where it is 0 modulo 8, on the
+    floor where it is 3 modulo 4, else on the table)."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    pfn = torch.as_tensor(plan.pfn, device=dev)
+    robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device=dev)
+    sphere_box = pfn == _FNS.index("sphere_box")
+    idx = torch.arange(loaded.shape[0], device=dev)
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    finger, floor = idx % 8 == 0, idx % 4 == 3
+    table = ~finger & ~floor
+    return {
+        "ball-finger sphere_box loaded": loaded[finger][:, sphere_box & robot].sum(1) >= 1,
+        "ball-table sphere_box loaded": loaded[table][:, sphere_box & ~robot].sum(1) >= 1,
+        "ball-floor plane_sphere loaded": loaded[floor][:, pfn == _FNS.index("plane_sphere")].sum(1) >= 1,
+        "friction lam_t nonzero (table, floor)": lam_t[~finger].sum(1) >= 1,
+    }
+
+
+def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
+                 contact_cmd="perturbed"):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
-    starts apart may end from its starting height after 10 control steps."""
+    starts apart may end from its starting height after 10 control steps.
+    ``contact_cmd``: the contact states' command, their own with perturbed
+    targets (``"perturbed"``) or their own (``"own"``: the arm holds and
+    the gripper shuts). In PlugCharger's and RollBall's grasps targets
+    moved by 0.05 rad make the plain float32 step itself leave the
+    tolerances of a float64 step in 9-15 % of the envs (CPU, K=512; PERF.md
+    section 6), beyond the referee rule's share, so those take their own."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
@@ -275,7 +343,10 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     # start interpenetrating, up to ~2 cm deep, in about a fifth of the
     # envs, and a few of those are as ill-conditioned as the contact states
     # below; only those envs take the contact states' rule
-    free_free = torch.as_tensor((plan.pfa >= 0) & (plan.pfb >= 0), device="cuda")
+    # (two free bodies: a pair of one body with itself, as PlugCharger's
+    # prong against its own base at zero depth, moves nothing)
+    free_free = torch.as_tensor((plan.pfa >= 0) & (plan.pfb >= 0) & (plan.pfa != plan.pfb),
+                                device="cuda")
     depth0 = engine.compute_contacts(
         env.model, st.sim, *engine.robot_fk(env.model, st.sim.qpos)[:2])[2]
     overlap = (depth0[:, free_free] > 0).any(1)
@@ -291,7 +362,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     # CONTACT_SHARE of the envs, and be no further from the float64 step
     # than the plain step is (1.5 x its count of envs beyond tol, plus 8)
     cst = env.contact_state(st, gen)
-    ccmd = perturbed(cst.cmd)
+    ccmd = perturbed(cst.cmd) if contact_cmd == "perturbed" else cst.cmd
     err_contact, cref = compare("contact", cst.sim, ccmd,
                                 referee=torch.ones(k, dtype=torch.bool, device="cuda"))
     loaded = cref["f_pt"].abs().sum(-1) > 0  # (K, P)
@@ -319,15 +390,17 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     print(f"[check] {task} settle: height change in [{float(dz.min()):.5f}, "
           f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start apart")
 
-    # kernel time per launch (5 substeps), its bound and the plain step's
-    # time, on both input sets; the kernels line reports the contact states
+    # kernel time per launch (one control step: 5 sim steps of the scene's
+    # substeps), its bound and the plain step's time, on both input sets;
+    # the kernels line reports the contact states
+    n_sub = 5 * env.model.params.substeps
     timing = {}
     for label, (s_in, c_in) in dict(reset=(st.sim, cmd), contact=(cst.sim, ccmd)).items():
         plane = megakernel.pack(plan, s_in, c_in)
-        kern.launch(plane, 5)
-        k_ms = event_ms(lambda: kern.launch(plane, 5), 20)
+        kern.launch(plane, n_sub)
+        k_ms = event_ms(lambda: kern.launch(plane, n_sub), 20)
         p_ms = event_ms(lambda: kern.plain(s_in, c_in, 5), 5)
-        nbytes, ops, counts = megakernel.work(plan, s_in, c_in, 5)
+        nbytes, ops, counts = megakernel.work(plan, s_in, c_in, n_sub)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         timing[label] = (k_ms, p_ms, bytes_ms, ops_ms)
@@ -626,7 +699,7 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # ---- 1. build: one nvcc per source, all at once ----
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _cuda.build("megakernel", "solve_psd")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -650,6 +723,12 @@ def main():
     kernel_phase(mtt, engine, megakernel, "PickSingleHull-v1", hull_branches,
                  settle_band=(-0.03, 0.005))
     torch.cuda.empty_cache()
+    # spheres and capsules: PlugCharger (20 substeps a launch; the charger
+    # starts on the table) and RollBall (the ball starts on the table)
+    plug = kernel_phase(mtt, engine, megakernel, "PlugCharger-v1", plug_branches,
+                        contact_cmd="own")
+    roll = kernel_phase(mtt, engine, megakernel, "RollBall-v1", roll_branches, contact_cmd="own")
+    torch.cuda.empty_cache()
 
     # ---- 3. the differentiable step on the card ----
     seam_err = seam_phase(mtt, planners.ILQR, planners.ILQRConfig)
@@ -664,11 +743,20 @@ def main():
     ycb |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickSingleYCB-v1",
                       K_YCB, SIGMA_YCB, TEMP_YCB, 46)
 
+    # ---- 5b. the PlugCharger and RollBall paths: MPPI at the bench shape ----
+    torch.cuda.empty_cache()
+    plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1",
+                       K_MPPI, 0.6, 0.3, 39)
+    roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1",
+                       K_MPPI, 0.6, 0.3, 44)
+
     # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
 
     # ---- 7. K1 ----
     k1 = solve_phase(linalg, solve_kernel)
+    print(f"[done] every phase passed, {time.perf_counter() - t_start:.1f} s with the builds",
+          flush=True)
 
     def entry(name, source, replaces, numbers, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -686,6 +774,8 @@ def main():
         entry("megakernel_step", k2_src, k2_tpu, stack)
         | {"inputs": f"StackCube-v1, K={K_CHECK}"},
         entry("megakernel_step", k2_src, k2_tpu, ycb) | {"inputs": f"PickSingleYCB-v1, K={K_YCB}"},
+        entry("megakernel_step", k2_src, k2_tpu, plug) | {"inputs": f"PlugCharger-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, roll) | {"inputs": f"RollBall-v1, K={K_CHECK}"},
         entry("solve_psd", "maniskill_tpu_torch/csrc/solve_psd.cu",
               "maniskill_tpu/physics/pallas_kernels.py:27", k1, k1["library_ms"]),
     ]}))

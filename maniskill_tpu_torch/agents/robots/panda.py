@@ -3,7 +3,9 @@
 Port of ``maniskill_tpu/agents/robots/panda.py``: the URDF, gains, rest
 keyframe, collision pruning, the ``pd_joint_delta_pos`` control mode
 (``:88``), ``build_grasp_checker`` (``:147``) and ``is_static`` (``:187``).
-The other control modes and the wrist-camera variant are not ported yet.
+``PandaWristCam`` (``panda_wristcam``, ``:193``) is the same body and
+controllers; its hand camera waits for the sensors. The other control
+modes are not ported yet.
 The URDF is read as a data file from the JAX package's asset tree.
 """
 from __future__ import annotations
@@ -101,3 +103,13 @@ class Panda(BaseAgent):
     def is_static(self, qvel: torch.Tensor, threshold: float = 0.2):
         """Arm joints only (grippers excluded)."""
         return torch.amax(torch.abs(qvel[..., :7]), dim=-1) <= threshold
+
+
+@register_agent
+class PandaWristCam(Panda):
+    """``panda_wristcam`` (JAX ``agents/robots/panda.py:193-215``): the
+    Panda's body, collisions and controllers. The JAX agent adds a depth
+    camera on the ``panda_hand`` frame; the port's sensors are not written
+    yet (ROADMAP Queue A item 11), so this agent has none."""
+
+    uid = "panda_wristcam"

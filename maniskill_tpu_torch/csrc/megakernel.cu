@@ -3,9 +3,10 @@
 // Replaces the Pallas TPU kernel maniskill_tpu/physics/megakernel.py
 // (_build_kernel -> kernel, launched by make_pallas_step_fn). One launch
 // runs n_substeps physics substeps for every env: robot FK, geom world
-// poses, narrowphase (plane_box, box_box_onesided, box_box_corners, the
-// free-free box_box, and plane_hull and box_hull against a convex hull
-// whose contact cloud and face planes are per-env rows of the input plane),
+// poses (a free body's geoms at their offsets), narrowphase (plane_box,
+// box_box_onesided, box_box_corners, the free-free box_box, plane_hull and
+// box_hull against a convex hull whose contact cloud and face planes are
+// per-env rows of the input plane, and the eight sphere and capsule pairs),
 // warm-started velocity-level contact forces, the robot mass matrix and
 // bias with implicit drives, free-body terms, the monolithic Cholesky
 // pair solve (split impulse: velocity and position right-hand sides),
@@ -83,7 +84,8 @@ enum Param {
 
 enum PairFn {
   FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS, FN_BOX_BOX, FN_PLANE_HULL,
-  FN_BOX_HULL
+  FN_BOX_HULL, FN_PLANE_SPHERE, FN_SPHERE_BOX, FN_BOX_SPHERE, FN_SPHERE_SPHERE,
+  FN_PLANE_CAPSULE, FN_SPHERE_CAPSULE, FN_CAPSULE_BOX, FN_CAPSULE_CAPSULE
 };
 
 enum Kind { KIND_STATIC, KIND_KINEMATIC, KIND_FREE, KIND_ROBOT_LINK };
@@ -246,6 +248,78 @@ __device__ __noinline__ void hull_sdf(V3 p, const float* faces, size_t Ks, float
   *n = scl(m, inv);
 }
 
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// sphere and capsule pairs (shapes.plane_sphere, plane_capsule,
+// sphere_sphere, sphere_box, box_sphere, sphere_capsule, capsule_box,
+// capsule_capsule): geom a = (pa, qa, sa) and b = (pb, qb, sb), size x = the
+// radius, y = a capsule's half length along its +z axis. The point's index
+// `c` picks the sample: plane_capsule's ends c = 0, 1 at -hl, +hl; the
+// sample spheres of capsule_box c = 0, 1, 2 at -hl, 0, +hl (the JAX kernel
+// reads these signs from rows). Not inlined, as hull_sdf: the box scenes
+// keep their registers.
+__device__ __noinline__ void round_contact(int fn, int c, V3 pa, Q4 qa, V3 sa, V3 pb, Q4 qb,
+                                           V3 sb, Contact* out) {
+  const V3 ez = mk3(0.0f, 0.0f, 1.0f);
+  Contact ct;
+  if (fn == FN_PLANE_SPHERE || fn == FN_PLANE_CAPSULE) {
+    // a sphere of radius sb.x (the sphere, or the capsule's end) below the plane
+    const V3 n = qapply(qa, ez);
+    const V3 ctr = fn == FN_PLANE_SPHERE
+                       ? pb
+                       : add(pb, scl(qapply(qb, ez), sb.y * (c == 0 ? -1.0f : 1.0f)));
+    const float dist = dot(sub(ctr, pa), n) - sb.x;
+    ct.pos = sub(ctr, scl(n, sb.x + 0.5f * dist));
+    ct.nrm = scl(n, -1.0f);
+    ct.dep = -dist;
+  } else if (fn == FN_SPHERE_BOX || fn == FN_BOX_SPHERE || fn == FN_CAPSULE_BOX) {
+    // a sphere (or a capsule's sample sphere) against the box SDF;
+    // box_sphere is sphere_box with the sides swapped and the normal negated
+    const bool swap = fn == FN_BOX_SPHERE;
+    const V3 ps = swap ? pb : pa, ss = swap ? sb : sa;
+    const V3 pbox = swap ? pa : pb, sbox = swap ? sa : sb;
+    const Q4 qbox = swap ? qa : qb;
+    const V3 ctr = fn == FN_CAPSULE_BOX ? add(pa, scl(qapply(qa, ez), sa.y * (float)(c - 1)))
+                                        : ps;
+    float sdf;
+    V3 nl;
+    point_box_sdf(qapply(qconj(qbox), sub(ctr, pbox)), sbox, &sdf, &nl);
+    const V3 n = qapply(qbox, nl);  // outward from the box
+    const float dep = ss.x - sdf;
+    ct.pos = sub(ctr, scl(n, ss.x - 0.5f * dep));
+    ct.nrm = swap ? scl(n, -1.0f) : n;
+    ct.dep = dep;
+  } else {
+    // sphere_sphere, sphere_capsule, capsule_capsule: the closest points of
+    // a's centre or segment and b's, then sphere against sphere
+    V3 ca = pa, cb = pb;
+    if (fn == FN_SPHERE_CAPSULE) {
+      const V3 axis = qapply(qb, ez);
+      cb = add(pb, scl(axis, clampf(dot(sub(pa, pb), axis), -sb.y, sb.y)));
+    } else if (fn == FN_CAPSULE_CAPSULE) {
+      const V3 ua = qapply(qa, ez), ub = qapply(qb, ez);
+      const V3 d0 = sub(pa, pb);
+      const float b = dot(ua, ub), cc = dot(ua, d0), f = dot(ub, d0);
+      const float denom = fmaxf(1.0f - b * b, 1e-9f);
+      float s = clampf((b * f - cc) / denom, -sa.y, sa.y);
+      const float t = clampf(b * s + f, -sb.y, sb.y);
+      s = clampf(b * t - cc, -sa.y, sa.y);
+      ca = add(pa, scl(ua, s));
+      cb = add(pb, scl(ub, t));
+    }
+    const V3 d = sub(ca, cb);
+    const float dist = sqrtf(dot(d, d) + 1e-18f);
+    const V3 n = mk3(d.x / dist, d.y / dist, d.z / dist);
+    const float dep = sa.x + sb.x - dist;
+    ct.pos = add(cb, scl(n, sb.x - 0.5f * dep));
+    ct.nrm = n;
+    ct.dep = dep;
+  }
+  *out = ct;
+}
+
 // candidate point `c` of one pair (shapes.plane_box / box_box_onesided /
 // box_box_corners / box_box / plane_hull / box_hull); normal from B toward
 // A, depth > 0 when penetrating. box_box: points 0-7 are A's corners and
@@ -253,12 +327,17 @@ __device__ __noinline__ void hull_sdf(V3 p, const float* faces, size_t Ks, float
 // normal negated. box_hull: points 0-7 are the box's corners against the
 // hull's faces, 8-47 the hull's contact cloud against the box with the
 // normal negated. plane_hull: the hull's contact cloud against the plane.
+// Spheres and capsules: round_contact.
 __device__ __forceinline__ Contact contact_point(int fn, int ga, int gb, int c,
                                                  const V3* gp, const Q4* gq,
                                                  const V3* gsz, const int* ghull,
                                                  const float* col, size_t Ks,
                                                  const int* mi) {
   Contact ct;
+  if (fn >= FN_PLANE_SPHERE) {
+    round_contact(fn, c, gp[ga], gq[ga], gsz[ga], gp[gb], gq[gb], gsz[gb], &ct);
+    return ct;
+  }
   if (fn == FN_PLANE_BOX || fn == FN_PLANE_HULL) {
     V3 n = qapply(gq[ga], mk3(0.0f, 0.0f, 1.0f));
     const V3 local = fn == FN_PLANE_BOX ? corner_local(gsz[gb], c)
@@ -353,7 +432,11 @@ __device__ __forceinline__ Forces forces_at(const PointCtx& x, float v_n, V3 v_t
   return f;
 }
 
-__global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
+// (64, 1): at most 64 threads a block, one block an SM is enough. With the
+// not-inlined narrowphase helpers ptxas then keeps the per-thread state in
+// registers (248, no spills); with (64) alone it chose 80 registers and
+// spilled, 1-3 % slower on the box scenes (PERF.md, section 6).
+__global__ void __launch_bounds__(64, 1) mk_kernel(const float* __restrict__ in,
                                                 float* __restrict__ out,
                                                 const float* __restrict__ mf,
                                                 const int* __restrict__ mi, int K,
@@ -559,7 +642,9 @@ __global__ void __launch_bounds__(64) mk_kernel(const float* __restrict__ in,
         OUT(mi[S_FPT] + 2 * P + p) = f_pos.z;
       }
       const float h_dt = h * d_t, h_nn = h * (d_n - d_t);
-      // contact-jacobian columns of the dofs that move this point
+      // contact-jacobian columns of the dofs that move this point; a pair
+      // of one body with itself (PlugCharger's prongs) has sm = sg = 0 on
+      // every dof: its columns cancel, and the point loads nothing
       int na = 0;
       for (int j = 0; j < nq; ++j) {
         const int sm = (ra >= 0 ? anc[ra * nq + j] : 0) - (rb >= 0 ? anc[rb * nq + j] : 0);

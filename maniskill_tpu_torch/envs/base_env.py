@@ -138,7 +138,7 @@ class BaseEnv:
 
         self.agent: BaseAgent = REGISTERED_AGENTS[self.robot_uids](device=self.device)
         self.control_mode = self.agent.control_mode
-        builder = SceneSpecBuilder(SimParams(dt=1.0 / self.SIM_FREQ))
+        builder = SceneSpecBuilder(self._sim_params())
         self._load_agent(builder)
         self._load_scene(builder)
         self.model: SceneModel = builder.build()
@@ -153,6 +153,11 @@ class BaseEnv:
         self._main_seed = None
 
     # -- task-authoring contract ------------------------------------------
+    def _sim_params(self) -> SimParams:
+        """Solver parameters of the scene (the JAX ``sim_params`` argument's
+        default; a task that needs finer substeps overrides this)."""
+        return SimParams(dt=1.0 / self.SIM_FREQ)
+
     def _load_agent(self, builder: SceneSpecBuilder):
         self.agent.install(builder, np.array([0, 0, 0, 1, 0, 0, 0], np.float32))
 

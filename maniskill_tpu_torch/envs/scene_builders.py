@@ -1,5 +1,7 @@
 """Prebuilt scene builders; port of ``TableSceneBuilder`` from
-``maniskill_tpu/envs/scene_builders.py`` (the Panda mount only)."""
+``maniskill_tpu/envs/scene_builders.py`` (the Panda mounts only: ``panda``
+and ``panda_wristcam``, whose rest qpos differs in joints 2 and 7 as in the
+JAX table)."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,6 +23,11 @@ class TableSceneBuilder:
             pose=np.array([-0.615, 0, 0, 1, 0, 0, 0], np.float32),
             qpos=np.array([0.0, -np.pi / 8, 0, -np.pi * 5 / 8, 0, np.pi * 3 / 4,
                            np.pi / 4, 0.04, 0.04], np.float32),
+        ),
+        "panda_wristcam": dict(
+            pose=np.array([-0.615, 0, 0, 1, 0, 0, 0], np.float32),
+            qpos=np.array([0.0, np.pi / 8, 0, -np.pi * 5 / 8, 0, np.pi * 3 / 4,
+                           -np.pi / 4, 0.04, 0.04], np.float32),
         ),
     }
 

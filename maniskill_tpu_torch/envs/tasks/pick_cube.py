@@ -24,13 +24,15 @@ from ..scene_builders import TABLE_HEIGHT, TableSceneBuilder
 
 
 def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
-               gen: torch.Generator) -> torch.Tensor:
+               gen: torch.Generator, dz=None, tool=(0.0, 1.0, 0.0, 0.0)) -> torch.Tensor:
     """``qpos`` with the arm moved so the TCP grasps the object at pose
     ``cube`` (K, 7) from above: damped least-squares IK puts the TCP on the
     object's vertical axis, pointing down, 2-12 mm below its centre (drawn
-    from ``gen``), with the fingers closing along the object's y axis, or
-    its x axis where the yaw is folded by an odd number of quarter turns
-    (``_closing_half``). The gripper joints are left as they are."""
+    from ``gen``; or ``dz`` (K,) metres above it, where given), with the
+    fingers closing along the object's y axis, or its x axis where the yaw
+    is folded by an odd number of quarter turns (``_closing_half``).
+    ``tool``: the TCP's orientation before the yaw (default: its +z turned
+    to world -z, pointing down). The gripper joints are left as they are."""
     model, spec, dev = env.model, env.model.robot, env.device
     K = qpos.shape[0]
     base = const(model, "robot_base_pose", model.robot_base_pose, dev)
@@ -43,9 +45,9 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
     yaw = yaw - (math.pi / 2) * turns
     ez = torch.zeros(K, 3, device=dev)
     ez[:, 2] = 1.0
-    down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=dev)  # TCP +z -> world -z
-    q_goal = quat_mul(quat_from_axis_angle(ez, yaw), down.expand(K, 4))
-    dz = -0.012 + 0.01 * torch.rand((K,), generator=gen, device=dev)
+    q_goal = quat_mul(quat_from_axis_angle(ez, yaw), torch.tensor(tool, device=dev).expand(K, 4))
+    if dz is None:
+        dz = -0.012 + 0.01 * torch.rand((K,), generator=gen, device=dev)
     p_goal = cube[:, :3] + torch.stack(
         [torch.zeros(K, device=dev), torch.zeros(K, device=dev), dz], dim=-1)
     qpos = qpos.clone()

@@ -47,7 +47,8 @@ BLOCK = 32  # threads per block: K=4096 envs -> 128 blocks over 132 SMs
 
 # pair functions the kernel implements, in the order of its PairFn enum
 _FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box", "plane_hull",
-        "box_hull")
+        "box_hull", "plane_sphere", "sphere_box", "box_sphere", "sphere_sphere",
+        "plane_capsule", "sphere_capsule", "capsule_box", "capsule_capsule")
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,6 +261,17 @@ OPS = dict(
     #                       (6 each) and 31 maxima; per face a tie test, a count and a normal sum (5);
     #                       the mean normal and its normalisation (15)
     box_hull_vertex=140,  # hull point into the world and the box frame, box SDF and normal, negated
+    # spheres and capsules, per point (a pair's shared terms shared out over
+    # its points); quat_apply counts 30, a 3-vector add 3, a dot 5
+    plane_sphere=51,    # plane normal 30, distance 9, position 8, negated normal and depth 4
+    plane_capsule=58,   # normal and axis (60 per pair, 2 points), end 7, distance 9, position 8, 4
+    sphere_sphere=23,   # difference 3, distance 7, normal 3, depth 2, position 8
+    sphere_box=113,     # centre into the box frame 36, box SDF and normal 38, back out 30, 9
+    box_sphere=116,     # sphere_box and the negated normal
+    sphere_capsule=69,  # axis 30, projection 8, clip 2, closest point 6, then sphere_sphere
+    capsule_box=130,    # axis (30 per pair, 3 points) 10, sample 7, then sphere_box
+    capsule_capsule=129,  # axes 60, d0 3, three dots 15, denominator 3, s 5, t 4, s 4,
+    #                       the two closest points 12, then sphere_sphere
     point_inactive=1,   # the margin test: no force, and the warm start resets to 0
     point_active=134,   # context 22, force law 2×30, gate and gains 31, warm-start update 21
     vel_robot_side=12,  # v + ω × r of the side's robot body, per contact pass

@@ -1,14 +1,17 @@
 """Scene model: static scene description + batched simulation state.
 
 Port of ``maniskill_tpu/physics/model.py`` for the scene classes of
-PickCube, StackCube and PickSingleHull/YCB (boxes, planes, free bodies,
-free convex hulls; pairs resolved as in ``_build_pair_tables``,
-``:336-373``): ``SimParams``, ``SimState`` (with the per-env hull tables,
-``:164-169``), ``DriveCmd``, ``SceneModel`` (``hull_verts0``,
-``hull_faces0``, ``n_hull``, ``geom_hull_slot``, ``:249-266``) and
-``SceneSpecBuilder`` with ``box_geom``/``plane_geom`` and ``add_free_hull``
-(``:583-607``). Not ported yet: capsules and spheres, articulated objects
-merged into a kinematic forest, and actor-pair drives.
+PickCube, StackCube, PickSingleHull/YCB, PlugCharger and RollBall (boxes,
+planes, spheres, capsules, free bodies of one or several offset geoms, free
+convex hulls; pairs resolved as in ``_build_pair_tables``, ``:336-373``):
+``SimParams``, ``SimState`` (with the per-env hull tables, ``:164-169``),
+``DriveCmd``, ``SceneModel`` (``hull_verts0``, ``hull_faces0``, ``n_hull``,
+``geom_hull_slot``, ``:249-266``) and ``SceneSpecBuilder`` with
+``box_geom``/``sphere_geom``/``capsule_geom``/``plane_geom`` (``:897-918``)
+and ``add_free_hull`` (``:583-607``). As in the JAX builder, two geoms of
+one free body form a pair too (PlugCharger's two prongs: a
+``capsule_capsule`` pair whose Jacobian columns cancel). Not ported yet:
+articulated objects merged into a kinematic forest, and actor-pair drives.
 
 ``SceneModel`` holds numpy constants (device-free). ``SimState`` and
 ``DriveCmd`` are dataclasses of tensors with the batch dimension K leading.
@@ -486,6 +489,20 @@ def box_geom(size, offset_p=(0, 0, 0), offset_q=(1, 0, 0, 0), friction=0.3,
              collision=True):
     return dict(type=GeomType.BOX, size=np.asarray(size), offset_p=offset_p,
                 offset_q=offset_q, friction=friction, collision=collision)
+
+
+def sphere_geom(radius, offset_p=(0, 0, 0), friction=0.3, collision=True):
+    return dict(type=GeomType.SPHERE, size=np.array([radius, 0, 0]),
+                offset_p=offset_p, friction=friction, collision=collision)
+
+
+def capsule_geom(radius, half_length, offset_p=(0, 0, 0), offset_q=(1, 0, 0, 0),
+                 friction=0.3, collision=True):
+    """Capsule of radius ``radius`` around a segment of half length
+    ``half_length`` along the geom's +z axis."""
+    return dict(type=GeomType.CAPSULE, size=np.array([radius, half_length, 0]),
+                offset_p=offset_p, offset_q=offset_q, friction=friction,
+                collision=collision)
 
 
 def plane_geom(friction=0.3, collision=True):

@@ -1,14 +1,16 @@
 """Collision primitives and pairwise contact-point generation, batched.
 
-Port of the box and plane parts of ``maniskill_tpu/physics/shapes.py``:
-``plane_box`` (``:110``), the symmetric 28-point ``box_box`` (``:198``)
-with ``_FACE_DIRS`` and ``_box_face_centers`` (``:188-195``),
+Port of ``maniskill_tpu/physics/shapes.py``: ``geom_local_half_extents``
+(``:52``); the sphere and capsule functions ``plane_sphere``,
+``plane_capsule``, ``sphere_sphere``, ``sphere_box``, ``box_sphere``
+(``:100-186``), ``sphere_capsule``, ``capsule_box`` and ``capsule_capsule``
+(``:229-279``); ``plane_box`` (``:110``), the symmetric 28-point ``box_box``
+(``:198``) with ``_FACE_DIRS`` and ``_box_face_centers`` (``:188-195``),
 ``box_box_corners`` (``:281``), ``box_box_onesided`` (``:301``) and their
 helpers ``_box_corners`` and ``_point_box_sdf``; the convex-hull face-plane
 SDF ``_hull_sdf`` (``:325``), ``plane_hull`` (``:341``) and ``box_hull``
-(``:361``) with their ``hull_args`` tags; and ``contact_fn``. The sphere
-and capsule functions and ``sphere_hull``, ``capsule_hull`` and
-``hull_hull`` are not ported yet.
+(``:361``) with their ``hull_args`` tags; and ``contact_fn``.
+``sphere_hull``, ``capsule_hull`` and ``hull_hull`` are not ported yet.
 
 Every pair function emits a fixed number of candidate points; inputs are
 poses ``p (..., 3)``, ``q (..., 4)`` and half sizes ``s (..., 3)``, outputs
@@ -32,9 +34,9 @@ from .hulls import HULL_P
 
 class GeomType(IntEnum):
     PLANE = 0  # half-space z<=0 in geom frame, normal +z
-    SPHERE = 1
+    SPHERE = 1  # size[0] = radius
     BOX = 2  # size = half extents
-    CAPSULE = 3
+    CAPSULE = 3  # size[0] = radius, size[1] = half length (axis +z)
     CYLINDER = 4
     HULL = 5  # padded contact-cloud + face-plane tables (physics/hulls.py);
     #           size = AABB half extents
@@ -59,6 +61,20 @@ _FACE_DIRS = np.array(
 
 
 _CONSTS = SimpleNamespace()  # holds this module's device copies (_consts.const)
+
+
+def geom_local_half_extents(gtype: int, size) -> np.ndarray:
+    """Local AABB half extents of a geom (host side, numpy): exact for a box
+    and a sphere, conservative for a capsule or cylinder (radius r, half
+    length hl along z -> (r, r, hl + r)); a hull stores its own in ``size``."""
+    size = np.asarray(size, np.float64)
+    t = int(gtype)
+    if t == GeomType.SPHERE:
+        return np.full(3, float(size[0]))
+    if t in (GeomType.CAPSULE, GeomType.CYLINDER):
+        r, hl = float(size[0]), float(size[1])
+        return np.array([r, r, hl + r])
+    return size  # BOX and HULL
 
 
 def _box_corners(pos, quat, half):
@@ -157,6 +173,117 @@ def box_box_onesided(pa, qa, sa, pb, qb, sb) -> ContactPoints:
 
 
 # ---------------------------------------------------------------------------
+# spheres and capsules (one point per pair, except plane_capsule: the two
+# ends at -hl, +hl; capsule_box: three sample spheres at -hl, 0, +hl)
+# ---------------------------------------------------------------------------
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def plane_sphere(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = plane, B = sphere."""
+    n = quat_apply(qa, _unit_z(pa))
+    r = sb[..., 0]
+    dist = _dot(pb - pa, n) - r
+    pos = pb - n * (r + 0.5 * dist)[..., None]
+    return ContactPoints(pos[..., None, :], (-n)[..., None, :], (-dist)[..., None])
+
+
+def plane_capsule(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = plane, B = capsule: both ends of the segment against the
+    half-space, each a sphere of the capsule's radius."""
+    n = quat_apply(qa, _unit_z(pa))
+    axis = quat_apply(qb, _unit_z(pb))
+    r, hl = sb[..., 0, None], sb[..., 1, None]
+    sign = const(_CONSTS, "ends", np.array([-1.0, 1.0], np.float32), pb.device)
+    ends = pb[..., None, :] + axis[..., None, :] * (hl * sign)[..., None]  # (..., 2, 3)
+    dist = _dot(ends - pa[..., None, :], n[..., None, :]) - r
+    pos = ends - n[..., None, :] * (r + 0.5 * dist)[..., None]
+    return ContactPoints(pos, (-n)[..., None, :].expand_as(pos), -dist)
+
+
+def sphere_sphere(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    d = pa - pb
+    dist = torch.sqrt(_dot(d, d) + 1e-18)
+    n = d / dist[..., None]
+    depth = sa[..., 0] + sb[..., 0] - dist
+    pos = pb + n * (sb[..., 0] - 0.5 * depth)[..., None]
+    return ContactPoints(pos[..., None, :], n[..., None, :], depth[..., None])
+
+
+def sphere_box(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = sphere, B = box: the centre against the box SDF."""
+    r = sa[..., 0]
+    p_local = quat_apply(quat_conjugate(qb), pa - pb)
+    sdf, n_local = _point_box_sdf(p_local, sb)
+    n = quat_apply(qb, n_local)  # outward from the box: B -> A
+    depth = r - sdf
+    pos = pa - n * (r - 0.5 * depth)[..., None]
+    return ContactPoints(pos[..., None, :], n[..., None, :], depth[..., None])
+
+
+def box_sphere(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = box, B = sphere: ``sphere_box`` with the sides swapped."""
+    c = sphere_box(pb, qb, sb, pa, qa, sa)
+    return ContactPoints(c.pos, -c.normal, c.depth)
+
+
+def sphere_capsule(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = sphere, B = capsule: the centre against the closest point of
+    the capsule's segment."""
+    axis = quat_apply(qb, _unit_z(pb))
+    t = clamps.clip(_dot(pa - pb, axis), -sb[..., 1], sb[..., 1])
+    closest = pb + axis * t[..., None]
+    d = pa - closest
+    dist = torch.sqrt(_dot(d, d) + 1e-18)
+    n = d / dist[..., None]
+    depth = sa[..., 0] + sb[..., 0] - dist
+    pos = closest + n * (sb[..., 0] - 0.5 * depth)[..., None]
+    return ContactPoints(pos[..., None, :], n[..., None, :], depth[..., None])
+
+
+def capsule_box(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """A = capsule, B = box: three spheres along the capsule's axis, at -hl,
+    0 and +hl, against the box SDF."""
+    axis = quat_apply(qa, _unit_z(pa))
+    r, hl = sa[..., 0, None], sa[..., 1, None]
+    sign = const(_CONSTS, "samples", np.array([-1.0, 0.0, 1.0], np.float32), pa.device)
+    centers = pa[..., None, :] + axis[..., None, :] * (hl * sign)[..., None]  # (..., 3, 3)
+    p_local = quat_apply(quat_conjugate(qb)[..., None, :], centers - pb[..., None, :])
+    sdf, n_local = _point_box_sdf(p_local, sb[..., None, :])
+    n = quat_apply(qb[..., None, :], n_local)
+    depth = r - sdf
+    pos = centers - n * (r - 0.5 * depth)[..., None]
+    return ContactPoints(pos, n, depth)
+
+
+def capsule_capsule(pa, qa, sa, pb, qb, sb) -> ContactPoints:
+    """Closest points of the two capsule segments (clamped, one pass of
+    alternation as in the JAX function), then sphere against sphere."""
+    ua = quat_apply(qa, _unit_z(pa))
+    ub = quat_apply(qb, _unit_z(pb))
+    ha, hb = sa[..., 1], sb[..., 1]
+    d0 = pa - pb
+    b = _dot(ua, ub)
+    c = _dot(ua, d0)
+    f = _dot(ub, d0)
+    denom = clamps.maximum(1.0 - b * b, 1e-9)  # |ua| = |ub| = 1
+    s = clamps.clip((b * f - c) / denom, -ha, ha)
+    t = clamps.clip(b * s + f, -hb, hb)
+    s = clamps.clip(b * t - c, -ha, ha)
+    ca = pa + ua * s[..., None]
+    cb = pb + ub * t[..., None]
+    d = ca - cb
+    dist = torch.sqrt(_dot(d, d) + 1e-18)
+    n = d / dist[..., None]
+    depth = sa[..., 0] + sb[..., 0] - dist
+    pos = cb + n * (sb[..., 0] - 0.5 * depth)[..., None]
+    return ContactPoints(pos[..., None, :], n[..., None, :], depth[..., None])
+
+
+# ---------------------------------------------------------------------------
 # convex hulls (padded contact-cloud + face-plane tables, physics/hulls.py)
 # ---------------------------------------------------------------------------
 
@@ -211,12 +338,23 @@ plane_hull.hull_args = "b"
 box_hull.hull_args = "b"
 
 
-# (type_a, type_b) -> (fn, n_points). The model builder replaces box_box by
-# the one-sided or corners-only test where one side is fixed or a robot
-# link (model.py).
+# (type_a, type_b) -> (fn, n_points). The builder lists a pair's geom of the
+# lower type first (model.py), as the JAX builder does, and replaces box_box
+# by the one-sided or corners-only test where one side is fixed or a robot
+# link. So no task's table holds box_sphere: it serves a pair listed box
+# first (the JAX kernel implements it too; its PAIR_FUNCS resolves such a
+# pair to sphere_box with the sides swapped).
 PAIR_FUNCS = {
+    (GeomType.PLANE, GeomType.SPHERE): (plane_sphere, 1),
     (GeomType.PLANE, GeomType.BOX): (plane_box, 8),
+    (GeomType.PLANE, GeomType.CAPSULE): (plane_capsule, 2),
+    (GeomType.SPHERE, GeomType.SPHERE): (sphere_sphere, 1),
+    (GeomType.SPHERE, GeomType.BOX): (sphere_box, 1),
+    (GeomType.BOX, GeomType.SPHERE): (box_sphere, 1),
     (GeomType.BOX, GeomType.BOX): (box_box, 28),
+    (GeomType.SPHERE, GeomType.CAPSULE): (sphere_capsule, 1),
+    (GeomType.CAPSULE, GeomType.BOX): (capsule_box, 3),
+    (GeomType.CAPSULE, GeomType.CAPSULE): (capsule_capsule, 1),
     (GeomType.PLANE, GeomType.HULL): (plane_hull, HULL_P),
     (GeomType.BOX, GeomType.HULL): (box_hull, 8 + HULL_P),
 }

@@ -26,6 +26,8 @@ import maniskill_tpu_torch.envs.tasks.stack_cube, maniskill_tpu_torch.kernel_ab
 import maniskill_tpu_torch.envs.tasks.pick_single_hull, maniskill_tpu_torch.envs.tasks.ycb_variants
 import maniskill_tpu_torch.physics.hulls, maniskill_tpu_torch.utils.building
 import maniskill_tpu_torch.math.clamps
+import maniskill_tpu_torch.envs.tasks.plug_charger, maniskill_tpu_torch.envs.tasks.tabletop_extra
+import maniskill_tpu_torch.agents.robots.panda
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -49,3 +51,6 @@ def test_make_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mtt.make("PickCube-v1", num_envs=1, device="cuda")
     assert mtt.make("PickCube-v1", num_envs=1, device="cpu").device.type == "cpu"
+    for task in ("PlugCharger-v1", "RollBall-v1"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mtt.make(task, num_envs=1)

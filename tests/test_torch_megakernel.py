@@ -381,8 +381,8 @@ def test_hull_pair_functions_and_table_sizes(hull):
     """The hull members of the kernel's PairFn enum come after the box ones,
     in the wrapper's order; ``supports`` takes both hull tasks and refuses a
     model whose padded hull tables differ from the kernel's HULL_P/HULL_F."""
-    assert megakernel._FNS[4:] == ("plane_hull", "box_hull")
-    assert megakernel._enum("PairFn")[4:] == ("FN_PLANE_HULL", "FN_BOX_HULL")
+    assert megakernel._FNS[4:6] == ("plane_hull", "box_hull")
+    assert megakernel._enum("PairFn")[4:6] == ("FN_PLANE_HULL", "FN_BOX_HULL")
     caps = megakernel._caps()
     assert (caps["HULL_P"], caps["HULL_F"]) == (hulls.HULL_P, hulls.HULL_F) == (40, 32)
     assert megakernel.supports(hull.model)
@@ -490,3 +490,225 @@ def test_hull_kernel_matches_plain(states):
         finger = (plan.pfn == megakernel._FNS.index("box_hull")) & (plan.pra >= 0)
         grasp = np.arange(37) % 4 != 3
         assert (loaded[grasp][:, finger].sum(1) >= 2).mean() >= 0.5
+
+
+# ---- spheres and capsules: PlugCharger-v1, RollBall-v1 and a scene built for
+# the three pair functions no task runs ------------------------------------
+
+ROUND_FNS = ("plane_sphere", "sphere_box", "box_sphere", "sphere_sphere", "plane_capsule",
+             "sphere_capsule", "capsule_box", "capsule_capsule")
+
+
+def round_scene(K, device, seed=0):
+    """The Panda at its rest pose on the table, and beyond its reach three
+    free bodies resting exactly on fixed supports (zero depth; each rest
+    moved by up to 1 cm in x and y per env), held there by gravity: sphere
+    s1 on a static block (``box_sphere``), sphere s2 balanced on a
+    kinematic sphere k1 (``sphere_sphere``), and a capsule c1 along x lying
+    across a kinematic capsule c0 along y at its middle
+    (``capsule_capsule``) with its +x end on a kinematic sphere k2
+    (``sphere_capsule``). Three free bodies keep
+    n_all = 27 within the kernel's cap. The builder lists every (sphere,
+    box) pair sphere first, as the JAX builder does; the model here lists
+    the block-s1 pair box first, so its table holds ``box_sphere``, which
+    no task reaches. Returns the model, a state and a command holding the
+    arm at rest."""
+    from maniskill_tpu_torch.agents.robots.panda import Panda
+    from maniskill_tpu_torch.envs.scene_builders import TableSceneBuilder
+    from maniskill_tpu_torch.physics.model import (DriveCmd, SceneModel, SceneSpecBuilder,
+                                                   box_geom, capsule_geom, sphere_geom)
+
+    b = SceneSpecBuilder()
+    table = TableSceneBuilder(None)
+    pose, qpos = table.robot_pose_and_qpos("panda")
+    Panda(device=device).install(b, pose, init_qpos=qpos)
+    table.build(b)
+    r, rc, hl = 0.02, 0.015, 0.03
+    along_x = (np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0)
+    along_y = (np.cos(np.pi / 4), -np.sin(np.pi / 4), 0.0, 0.0)
+    ms = 1000.0 * 4 / 3 * np.pi * r ** 3
+    mc = 1000.0 * np.pi * rc * rc * 2 * (hl + rc)
+    s1 = b.add_free_body("s1", ms, 0.4 * ms * r * r * np.eye(3), [sphere_geom(r)])
+    s2 = b.add_free_body("s2", ms, 0.4 * ms * r * r * np.eye(3), [sphere_geom(r)])
+    c1 = b.add_free_body("c1", mc, mc * (hl + rc) ** 2 / 3 * np.eye(3),
+                         [capsule_geom(rc, hl, offset_q=along_x)])
+    k1 = b.add_kinematic_body("k1", [sphere_geom(r)])
+    k2 = b.add_kinematic_body("k2", [sphere_geom(r)])
+    c0 = b.add_kinematic_body("c0", [capsule_geom(rc, hl, offset_q=along_y)])
+    z0 = 0.1  # the supports' height over the table
+    b.add_static_body("block", np.array([0.3, 0.0, z0, 1, 0, 0, 0], np.float32),
+                      [box_geom([r] * 3)])
+    m0 = b.build()
+    block, g1 = m0.geom_indices("block")[0], m0.geom_indices("s1")[0]
+    pairs = [(block, g1) if {ga, gb} == {block, g1} else (ga, gb) for ga, gb in m0.pairs]
+    assert pairs != m0.pairs
+    model = SceneModel(
+        robot=m0.robot, robot_base_pose=m0.robot_base_pose, free_names=m0.free_names,
+        free_mass=m0.free_mass, free_inertia=m0.free_inertia, kin_names=m0.kin_names,
+        static_names=m0.static_names, static_pose=m0.static_pose, geoms=m0.geoms,
+        pairs=pairs, params=m0.params, drive_kp=m0.drive_kp, drive_kd=m0.drive_kd,
+        drive_force_limit=m0.drive_force_limit, init_qpos=m0.init_qpos)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sim = model.initial_state(K, device)
+    free_pose = sim.free_pose.clone()
+    kin_pose = sim.kin_pose.clone()
+
+    def at(x, y, z, shift):  # (K, 3): a point moved by the env's shift
+        return torch.tensor([x, y, z], device=device) + shift
+
+    def shift():  # up to 1 cm in x and y, per env: rests stay exact
+        return torch.cat([0.02 * torch.rand((K, 2), generator=g, device=device) - 0.01,
+                          torch.zeros((K, 1), device=device)], 1)
+
+    free_pose[:, s1, :3] = at(0.3, 0.0, z0 + 2 * r, shift())  # on the block's top face
+    d = shift()
+    kin_pose[:, k1, :3] = at(0.3, 0.15, z0, d)
+    free_pose[:, s2, :3] = at(0.3, 0.15, z0 + 2 * r, d)
+    # c1 across c0 at its middle, its +x segment end r + rc over k2
+    d = shift()
+    kin_pose[:, c0, :3] = at(0.3, -0.15, z0, d)
+    free_pose[:, c1, :3] = at(0.3, -0.15, z0 + 2 * rc, d)
+    kin_pose[:, k2, :3] = at(0.3 + hl, -0.15, z0 + 2 * rc - r - rc, d)
+    sim = sim.replace(free_pose=free_pose, kin_pose=kin_pose)
+    zeros = torch.zeros_like(sim.qpos)
+    return model, sim, DriveCmd(target_qpos=sim.qpos, target_qvel=zeros, qf=zeros)
+
+
+@pytest.mark.parametrize("name", ["box_sphere", "sphere_sphere", "sphere_capsule",
+                                  "capsule_capsule"])
+def test_round_scene_holds_the_untasked_pair_functions(name):
+    """The scene of ``round_scene`` holds all eight sphere and capsule pair
+    functions (box_sphere, sphere_sphere and sphere_capsule among them: no
+    task runs those), the kernel supports it, and the contacts of each of
+    these four carry force after two sim steps of the plain step (the
+    bodies then part)."""
+    model, sim, cmd = round_scene(4, "cpu")
+    names = {fn.__name__ for fn, *_ in model.pair_groups}
+    assert set(ROUND_FNS) <= names
+    assert megakernel.supports(model)
+    _, aux = make_step_fn(model)(sim, cmd, 2, return_aux=True)
+    plan = megakernel._Plan(model)
+    loaded = (aux["f_pt"].abs().sum(-1) > 0).numpy()
+    assert loaded[:, plan.pfn == megakernel._FNS.index(name)].any(1).all(), name
+
+
+@pytest.fixture(scope="module")
+def plug():
+    e = mtt.make("PlugCharger-v1", num_envs=K, reward_mode="dense", device="cpu")
+    e.reset(seed=0)
+    return e
+
+
+@pytest.mark.parametrize("task, P, subs", [("PlugCharger-v1", 453, 4), ("RollBall-v1", 47, 1)])
+def test_round_pair_functions_and_plan(plug, task, P, subs):
+    """The sphere and capsule members of the kernel's PairFn enum follow
+    the hull ones, in the wrapper's order; PlugCharger-v1 (P=453, 20
+    substeps a control step) and RollBall-v1 (P=47) are supported, and
+    PlugCharger's charger takes one free body's six columns (n_all = 15)."""
+    assert megakernel._FNS[6:] == ROUND_FNS
+    assert megakernel._enum("PairFn")[6:] == tuple(f"FN_{n.upper()}" for n in ROUND_FNS)
+    e = plug if task == "PlugCharger-v1" else mtt.make(task, num_envs=1, device="cpu")
+    assert megakernel.supports(e.model)
+    assert (e.model.n_points, e.model.params.substeps) == (P, subs)
+    assert isinstance(e.kernel, megakernel.MegaKernel)
+    if task != "PlugCharger-v1":
+        return
+    plan = megakernel._Plan(plug.model)
+    assert (plan.n_all, plan.G) == (15, 15)
+    # the prong pairs of the charger with itself: both sides the same body
+    same = (plan.pfa >= 0) & (plan.pfa == plan.pfb)
+    assert set(np.asarray(megakernel._FNS)[plan.pfn[same]]) == {"capsule_box", "capsule_capsule"}
+
+
+def test_work_counts_round_points(plug):
+    """The bound prices each sphere and capsule point by its row of
+    ``megakernel.OPS``: with the charger lifted far from everything, the
+    narrowphase terms of the step are the sums over the point table."""
+    plan = megakernel._Plan(plug.model)
+    st = plug._state
+    far = st.sim.replace(free_pose=st.sim.free_pose + torch.tensor([0, 0, 1.0, 0, 0, 0, 0]))
+    _, ops1, c1 = megakernel.work(plan, far, st.cmd, 1)
+    _, ops2, c2 = megakernel.work(plan, far, st.cmd, 2)
+    names = np.asarray(megakernel._FNS)[plan.pfn]
+    for n in ("plane_capsule", "capsule_box", "capsule_capsule"):
+        assert (names == n).sum() > 0 and megakernel.OPS[n] > 0
+    assert ops2 > ops1 > 0 and c2["points"] == 2 * c1["points"] == 2 * 453 * K
+
+
+def _kernel_vs_plain(kern, sim, cmd, n, strict, K_):
+    """One launch against the plain step and a float64 plain step: with
+    ``strict`` every env within the tolerances; else (contact states) at
+    most 10 % of the envs beyond them and the kernel no further from the
+    float64 step than the float32 plain step (1.5 x its count, plus 2)."""
+    got, aux = kern(sim, cmd, n)
+    ref, aux_ref = kern.plain(sim, cmd, n)
+    f64, aux64 = _in_float64(kern.plain, _as64(sim), _as64(cmd), n)
+    torch.cuda.synchronize()
+    names = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+                 contact_lam=5e-3, contact_lam_t=5e-3)
+    triples = [(getattr(got, k), getattr(ref, k), getattr(f64, k), tol)
+               for k, tol in names.items()]
+    triples += [(aux["f_pt"], aux_ref["f_pt"], aux64["f_pt"], 5e-3)]
+
+    def beyond(a, b, tol):
+        return (a.double() - b.double()).abs().reshape(K_, -1).amax(1) > tol
+
+    for a, b, c, tol in triples:
+        assert torch.isfinite(a).all()
+        out = beyond(a, b, tol)
+        if strict:
+            assert not out.any(), (out.nonzero().ravel(), tol)
+            continue
+        assert int(out.sum()) <= 0.1 * K_, (int(out.sum()), tol)
+        k64, p64 = int(beyond(a, c, tol).sum()), int(beyond(b, c, tol).sum())
+        assert k64 <= 1.5 * p64 + 2, (k64, p64, tol)
+    return (aux_ref["f_pt"].abs().sum(-1) > 0).cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["PlugCharger-v1", "RollBall-v1"])
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_round_kernel_matches_plain(task, states):
+    """PlugCharger-v1 (capsule prongs on an offset-geom free body, 20
+    substeps in one launch) and RollBall-v1 (a free sphere) through the
+    CUDA kernel against the plain step on the card, K=37: from reset states
+    with the targets moved (every env within the tolerances), or from
+    ``contact_state`` states under their own command (the arm holds, the
+    gripper shuts), refereed by a float64 plain step as in
+    ``test_hull_kernel_matches_plain``; in contact the prongs or the ball
+    carry force. (Moved targets in these grasps make the plain float32
+    step itself leave the tolerances of a float64 step in 9-15 % of the
+    envs: chip_smoke.py.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, 5, states == "reset", 37)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        pfn = np.asarray(megakernel._FNS)[cenv.kernel.plan.pfn]
+        for name in (("capsule_box", "plane_capsule") if task.startswith("Plug")
+                     else ("sphere_box", "plane_sphere")):
+            assert loaded[:, pfn == name].any(1).sum() >= 5, name
+
+
+@pytest.mark.cuda
+def test_round_scene_kernel_matches_plain():
+    """The scene of ``round_scene`` (box_sphere, sphere_sphere,
+    sphere_capsule and capsule_capsule in contact) through the CUDA kernel
+    against the plain step on the card, two sim steps in one launch, K=37:
+    every env within the tolerances, and each of those four functions
+    carries force."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, sim, cmd = round_scene(37, "cuda")
+    kern = megakernel.MegaKernel(model)
+    loaded = _kernel_vs_plain(kern, sim, cmd, 2, True, 37)
+    pfn = np.asarray(megakernel._FNS)[kern.plan.pfn]
+    for name in ("box_sphere", "sphere_sphere", "sphere_capsule", "capsule_capsule"):
+        assert loaded[:, pfn == name].any(1).mean() >= 0.9, name

@@ -28,10 +28,19 @@ from maniskill_tpu_torch.math import clamps
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
+from torch_parity import fast_trace_metadata
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_jax_tables():
+    """The JAX package's static contact tables through one jitted program
+    (tests/torch_parity.py): its env builds take seconds, not tens."""
+    with fast_trace_metadata():
+        yield
 
 K = 4
 TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,

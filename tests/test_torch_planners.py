@@ -40,10 +40,19 @@ from maniskill_tpu_torch.physics.model import _Struct, tree_map
 from maniskill_tpu_torch.planners import (CEM, CEMConfig, CEMILQR, CEMILQRConfig, ILQR,
                                           ILQRConfig, make_planner, solve_task)
 from maniskill_tpu_torch.planners.ilqr import select_step
+from torch_parity import fast_trace_metadata
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_jax_tables():
+    """The JAX package's static contact tables through one jitted program
+    (tests/torch_parity.py): its env builds take seconds, not tens."""
+    with fast_trace_metadata():
+        yield
 
 
 def _np(obj):
@@ -100,8 +109,11 @@ def test_ilqr_linearization_matches_jax_jvp(jenv, tenv):
                              st2.sim.free_vel.reshape(-1)])
         return y, -reward + 1e-3 * jnp.sum(u * u)
 
-    jt = jax.jit(jax.vmap(lambda dx, du: jax.jvp(dyn_cost, (x0, u0), (dx, du))[1]))
-    dy_j, dc_j = map(np.asarray, jt(jnp.asarray(dxs), jnp.asarray(dus)))
+    # one direction per call: the unbatched program compiles faster than
+    # the vmapped one
+    jt = jax.jit(lambda dx, du: jax.jvp(dyn_cost, (x0, u0), (dx, du))[1])
+    outs = [jt(jnp.asarray(dx), jnp.asarray(du)) for dx, du in zip(dxs, dus)]
+    dy_j, dc_j = (np.stack([np.asarray(o[i]) for o in outs]) for i in range(2))
     rep = tree_map(lambda v: v.repeat_interleave(2, dim=0), st_t)
     dy_t, dc_t = il.step_jvp(rep, torch.tensor(x0).repeat(2, 1), torch.tensor(u0).repeat(2, 1),
                              torch.tensor(dxs), torch.tensor(dus))
