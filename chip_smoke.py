@@ -22,6 +22,13 @@ Phases (each passes or ends the script with a non-zero exit):
      fails unless every pair function and friction carry force there), then
      a 10-control-step settle check through the kernel alone; time the
      kernel and its plain version and count the step's work for the bound;
+     the same for RotateSingleObjectInHandLevel2-v1 at K=4096 (the Allegro
+     hand, nq 16, a hull per env on 16 capsules: capsule_hull,
+     plane_capsule), reset envs whose dropped object touches the hand in
+     the step and the settled contact states refereed by a float64 plain
+     step, with the share of envs whose capsule_hull points carry force;
+     then the hull stack (``physics/hull_stack.py``: sphere_hull and both
+     halves of hull_hull loaded), dropped and settled;
   3. the differentiable step on the card: the JVP and the VJP of one
      StackCube ``_rollout_step`` through ``KernelStep`` (kernel primal,
      plain-step derivative) against those of the plain step, K=64;
@@ -32,7 +39,8 @@ Phases (each passes or ends the script with a non-zero exit):
   5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
      K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
      0.1): one warm-up solve and 5 timed solves, 50 kernel launches each;
-     then the PlugCharger-v1 and RollBall-v1 paths at the bench shape (H=50,
+     then the PlugCharger-v1, RollBall-v1 and
+     RotateSingleObjectInHandLevel2-v1 paths at the bench shape (H=50,
      K=4096, sigma 0.6, temperature 0.3) the same way;
   6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
@@ -253,8 +261,167 @@ def roll_branches(env, plan, cst, loaded, depth):
     }
 
 
+def inhand_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the in-hand contact states (the dropped
+    object settled on the fingers): the object's capsule_hull points, with
+    friction. Prints the share of envs with capsule_hull points loaded."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    capsule_hull = torch.as_tensor(plan.pfn == _FNS.index("capsule_hull"), device=dev)
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    held = loaded[:, capsule_hull].any(1)
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: capsule_hull points loaded in "
+          f"{100 * float(held.float().mean()):.1f} % of the envs "
+          f"({int(loaded[:, capsule_hull].sum())} points), plane_capsule "
+          f"{int(loaded[:, ~capsule_hull].sum())}")
+    return {
+        "object-finger capsule_hull loaded": held,
+        "friction lam_t nonzero (capsule_hull)": lam_t[:, capsule_hull].any(1),
+    }
+
+
+def stack_phase(megakernel):
+    """K2 against its plain step on the hull stack (physics/hull_stack.py),
+    the one scene that holds sphere_hull and hull_hull: dropped (each body
+    1 mm over the one below) and settled (10 sim steps of the plain step),
+    both refereed as the in-hand contact states: three bodies landing on
+    one another amplify float32 rounding (the plain float32 step against a
+    float64 one, dropped: free vel 8.5e-5 in the median env, 4.4e-4 at
+    most; CPU, K=512), and the kernel sits as far from the plain step. Both
+    must leave sphere_hull and both halves of hull_hull (the block's cloud
+    against the slab's planes, the slab's against the block's) loaded in
+    90 % of the envs. Times the kernel and the plain step on the settled
+    states and counts their bound."""
+    import torch
+    from maniskill_tpu_torch._cuda import event_ms
+    from maniskill_tpu_torch.physics.hull_stack import hull_stack
+
+    task = f"hull stack K={K_CHECK}"
+    model, sim, cmd = hull_stack(K_CHECK, "cuda")
+    kern = megakernel.MegaKernel(model)
+    plan = kern.plan
+    pfn = torch.as_tensor(plan.pfn, device="cuda")
+    corner = torch.as_tensor(plan.pcorner, device="cuda")
+    hh = pfn == megakernel._FNS.index("hull_hull")
+    masks = {"sphere_hull": pfn == megakernel._FNS.index("sphere_hull"),
+             "hull_hull block on slab": hh & (corner < 40),
+             "hull_hull slab under block": hh & (corner >= 40),
+             "plane_hull": pfn == megakernel._FNS.index("plane_hull")}
+    settled = kern.plain(sim, cmd, 10)[0]
+    errs = []
+    for label, s_in in (("dropped", sim), ("settled", settled)):
+        referee = torch.ones(K_CHECK, dtype=torch.bool, device="cuda")
+        err, ref = compare_step(kern, task, label, s_in, cmd, referee, ill_rule=True)
+        errs.append(err)
+        loaded = ref["f_pt"].abs().sum(-1) > 0
+        for name, m in masks.items():
+            share = float(loaded[:, m].any(1).float().mean())
+            print(f"[check] {task} {label}: {name} loaded in {100 * share:.1f} % of the envs")
+            if share < 0.9:
+                fail(f"{task} {label}: {name} loaded in only {100 * share:.1f} % of the envs")
+    plane = megakernel.pack(plan, settled, cmd)
+    kern.launch(plane, 5)
+    k_ms = event_ms(lambda: kern.launch(plane, 5), 20)
+    p_ms = event_ms(lambda: kern.plain(settled, cmd, 5), 5)
+    nbytes, ops, counts = megakernel.work(plan, settled, cmd, 5)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    print(f"[time] {task} settled: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> {bytes_ms:.5f} ms, {ops} ops -> "
+          f"{ops_ms:.5f} ms; points {counts})", flush=True)
+    return dict(stack_max_abs_err=max(errs), stack_ms=k_ms, stack_plain_ms=p_ms,
+                stack_bound_ms=max(bytes_ms, ops_ms))
+
+
+def _outputs(state, aux):
+    return {n: getattr(state, n) for n in TOL} | {n: aux[n] for n in AUX_TOL}
+
+
+def _env_err(a, b):
+    """Largest |a - b| of each env, in float64."""
+    return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(1)
+
+
+def compare_step(kern, task, label, sim, cmd, referee, ill_rule=False):
+    """One control step through the kernel and the plain step. Every env
+    outside the mask ``referee`` (K,) must agree within the tolerances. The
+    envs in it are ill-conditioned (see the contact states in
+    ``kernel_phase``): at most CONTACT_SHARE of them may disagree, and the
+    kernel must be no further from a float64 plain step there than the
+    float32 plain step is. With ``ill_rule`` the share counts only the
+    refereed envs where the float32 plain step itself stays within the
+    tolerances of the float64 step (the in-hand scenes: a light object on
+    16 capsules leaves them in 7-14 % of the envs, in the plain step too).
+    Returns the largest error and the plain step's outputs."""
+    import torch
+
+    k = sim.qpos.shape[0]
+    got = _outputs(*kern(sim, cmd, 5))
+    ref = _outputs(*kern.plain(sim, cmd, 5))
+    n_ref = int(referee.sum())
+    if n_ref:
+        prev = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        try:
+            f64 = _outputs(*kern.plain(as64(sim), as64(cmd), 5))
+        finally:
+            torch.set_default_dtype(prev)
+    torch.cuda.synchronize()
+    shared = referee
+    if n_ref and ill_rule:
+        ill = torch.zeros_like(referee)
+        for name, tol in (TOL | AUX_TOL).items():
+            ill |= _env_err(ref[name], f64[name]) > tol
+        shared = referee & ~ill
+        print(f"[check] {task} {label}: the float32 plain step leaves the float64 step's "
+              f"tolerances in {int((ill & referee).sum())} of {n_ref} refereed envs")
+    max_err, worst = 0.0, []
+    for name, tol in (TOL | AUX_TOL).items():
+        if not torch.isfinite(got[name]).all():
+            fail(f"{task} {label}: kernel output {name} is not finite")
+        e = _env_err(got[name], ref[name])
+        beyond = e > tol
+        err, n_strict = float(e.max()), int((beyond & ~referee).sum())
+        max_err = max(max_err, err)
+        line = (f"[check] {task} {label} {name}: max |kernel - plain| = {err:.3e} (tol "
+                f"{tol:g}, max |plain| {float(ref[name].abs().max()):.3e}), median env "
+                f"{float(e.median()):.3e}, envs beyond tol {n_strict} of "
+                f"{k - n_ref} held in full")
+        if n_strict:
+            worst.append(f"{name}: {n_strict} envs held in full beyond tol {tol:g}")
+        if n_ref:
+            n_out = int((beyond & shared).sum())
+            k64 = int(((_env_err(got[name], f64[name]) > tol) & referee).sum())
+            p64 = int(((_env_err(ref[name], f64[name]) > tol) & referee).sum())
+            line += (f", {n_out} of {int(shared.sum())} refereed"
+                     f"{' (plain within the float64 tolerances)' if ill_rule else ''}; beyond "
+                     f"tol of the float64 step: kernel {k64}, plain {p64}")
+            if n_out > CONTACT_SHARE * int(shared.sum()) or k64 > 1.5 * p64 + 8:
+                worst.append(f"{name}: {n_out} refereed envs beyond tol of the plain step, "
+                             f"{k64} (plain: {p64}) beyond tol of the float64 step")
+        print(line)
+    if worst:
+        fail(f"{task} {label}: kernel disagrees with the plain step: " + "; ".join(worst))
+    return max_err, ref
+
+
+def touched_in_step(kern, sim, cmd, n):
+    """(K,) envs in which some point carries force in any of ``n`` sim
+    steps of the plain step, run one sim step at a time (its ``f_pt`` is the
+    last substep's only)."""
+    import torch
+
+    hit = torch.zeros(sim.qpos.shape[0], dtype=torch.bool, device=sim.qpos.device)
+    for _ in range(n):
+        sim, aux = kern.plain(sim, cmd, 1)
+        hit |= (aux["f_pt"].abs().sum(-1) > 0).any(1) | (sim.contact_lam > 0).any(1)
+    return hit
+
+
 def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
-                 contact_cmd="perturbed"):
+                 contact_cmd="perturbed", inhand=False):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
     starts apart may end from its starting height after 10 control steps.
@@ -263,10 +430,17 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     the gripper shuts). In PlugCharger's and RollBall's grasps targets
     moved by 0.05 rad make the plain float32 step itself leave the
     tolerances of a float64 step in 9-15 % of the envs (CPU, K=512; PERF.md
-    section 6), beyond the referee rule's share, so those take their own."""
+    section 6), beyond the referee rule's share, so those take their own.
+    ``inhand``: the Allegro scenes, where the object is dropped onto the
+    fingers at reset. Reset envs whose object touches nothing in the step
+    are held in full, the rest refereed; the referee's share counts only
+    envs where the float32 plain step stays within the float64 step's
+    tolerances (``compare_step``); the settle check asks that 80 % of the
+    objects stay on the hand (over its drop height) instead of a band."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
+    ill_rule = inhand
     env = mtt.make(task, num_envs=k, reward_mode="dense")
     task = f"{task} K={k}"
     env.reset(seed=0)
@@ -284,58 +458,8 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
         return cmd.replace(target_qpos=cmd.target_qpos + 0.05 * torch.randn(
             cmd.target_qpos.shape, generator=gen, device="cuda"))
 
-    def outputs(state, aux):
-        return {n: getattr(state, n) for n in TOL} | {n: aux[n] for n in AUX_TOL}
-
-    def env_err(a, b):
-        """Largest |a - b| of each env, in float64."""
-        return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(1)
-
     def compare(label, sim, cmd, referee):
-        """One control step through the kernel and the plain step. Every
-        env outside the mask ``referee`` (K,) must agree within the
-        tolerances. The envs in it are ill-conditioned (see the contact
-        states below): at most CONTACT_SHARE of them may disagree, and the
-        kernel must be no further from a float64 plain step there than the
-        float32 plain step is."""
-        got = outputs(*kern(sim, cmd, 5))
-        ref = outputs(*kern.plain(sim, cmd, 5))
-        n_ref = int(referee.sum())
-        if n_ref:
-            prev = torch.get_default_dtype()
-            torch.set_default_dtype(torch.float64)
-            try:
-                f64 = outputs(*kern.plain(as64(sim), as64(cmd), 5))
-            finally:
-                torch.set_default_dtype(prev)
-        torch.cuda.synchronize()
-        max_err, worst = 0.0, []
-        for name, tol in (TOL | AUX_TOL).items():
-            if not torch.isfinite(got[name]).all():
-                fail(f"{task} {label}: kernel output {name} is not finite")
-            e = env_err(got[name], ref[name])
-            beyond = e > tol
-            err, n_strict = float(e.max()), int((beyond & ~referee).sum())
-            max_err = max(max_err, err)
-            line = (f"[check] {task} {label} {name}: max |kernel - plain| = {err:.3e} (tol "
-                    f"{tol:g}, max |plain| {float(ref[name].abs().max()):.3e}), median env "
-                    f"{float(e.median()):.3e}, envs beyond tol {n_strict} of "
-                    f"{k - n_ref} held in full")
-            if n_strict:
-                worst.append(f"{name}: {n_strict} envs held in full beyond tol {tol:g}")
-            if n_ref:
-                n_out = int((beyond & referee).sum())
-                k64 = int(((env_err(got[name], f64[name]) > tol) & referee).sum())
-                p64 = int(((env_err(ref[name], f64[name]) > tol) & referee).sum())
-                line += (f", {n_out} of {n_ref} refereed; beyond tol of the float64 step: "
-                         f"kernel {k64}, plain {p64}")
-                if n_out > CONTACT_SHARE * n_ref or k64 > 1.5 * p64 + 8:
-                    worst.append(f"{name}: {n_out} refereed envs beyond tol of the plain step, "
-                                 f"{k64} (plain: {p64}) beyond tol of the float64 step")
-            print(line)
-        if worst:
-            fail(f"{task} {label}: kernel disagrees with the plain step: " + "; ".join(worst))
-        return max_err, ref
+        return compare_step(kern, task, label, sim, cmd, referee, ill_rule)
 
     # a) reset states: cubes rest on the table, the hand is far from them;
     # every env must agree. StackCube's placement rule (the JAX package's:
@@ -353,6 +477,10 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     print(f"[check] {task} reset: {int(overlap.sum())} of {k} envs start with "
           "free bodies interpenetrating")
     cmd = perturbed(st.cmd)
+    if inhand:
+        overlap = touched_in_step(kern, st.sim, cmd, 5)
+        print(f"[check] {task} reset: the object touches the hand within the step in "
+              f"{int(overlap.sum())} of {k} envs (refereed)")
     err_reset, _ = compare("reset", st.sim, cmd, referee=overlap)
     # b) states in contact: every pair function carries force. Stiff
     # contacts amplify float32 rounding, and a force law with thresholds
@@ -381,14 +509,23 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     sim = st.sim
     for _ in range(10):
         sim, _aux = kern(sim, st.cmd, 5)
-    dz = (sim.free_pose[..., 2] - st.sim.free_pose[..., 2])[~overlap]
     if not (torch.isfinite(sim.qpos).all() and torch.isfinite(sim.free_pose).all()):
         fail(f"{task} settle run produced non-finite state")
-    if not bool(((dz > settle_band[0]) & (dz < settle_band[1])).all()):
-        fail(f"{task}: free bodies did not settle: height change in [{float(dz.min()):.4f}, "
-             f"{float(dz.max()):.4f}] m, allowed {settle_band}")
-    print(f"[check] {task} settle: height change in [{float(dz.min()):.5f}, "
-          f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start apart")
+    if inhand:
+        held = float((sim.free_pose[:, 0, 2] > env.drop_height).float().mean())
+        print(f"[check] {task} settle: the object on the hand after 10 control steps in "
+              f"{100 * held:.1f} % of the envs")
+        if held < 0.8:
+            fail(f"{task}: only {100 * held:.1f} % of the objects stayed on the hand")
+        settle_band = None
+    dz = (sim.free_pose[..., 2] - st.sim.free_pose[..., 2])[~overlap]
+    if settle_band is not None:
+        if not bool(((dz > settle_band[0]) & (dz < settle_band[1])).all()):
+            fail(f"{task}: free bodies did not settle: height change in [{float(dz.min()):.4f}, "
+                 f"{float(dz.max()):.4f}] m, allowed {settle_band}")
+        print(f"[check] {task} settle: height change in [{float(dz.min()):.5f}, "
+              f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start "
+              "apart")
 
     # kernel time per launch (one control step: 5 sim steps of the scene's
     # substeps), its bound and the plain step's time, on both input sets;
@@ -729,6 +866,13 @@ def main():
                         contact_cmd="own")
     roll = kernel_phase(mtt, engine, megakernel, "RollBall-v1", roll_branches, contact_cmd="own")
     torch.cuda.empty_cache()
+    # hulls against capsules: the Allegro hand holding a hull per env
+    # (capsule_hull, plane_capsule; nq 16); spheres and hulls against
+    # hulls: the hull stack (sphere_hull, hull_hull)
+    inhand = kernel_phase(mtt, engine, megakernel, "RotateSingleObjectInHandLevel2-v1",
+                          inhand_branches, contact_cmd="own", inhand=True)
+    inhand |= stack_phase(megakernel)
+    torch.cuda.empty_cache()
 
     # ---- 3. the differentiable step on the card ----
     seam_err = seam_phase(mtt, planners.ILQR, planners.ILQRConfig)
@@ -750,6 +894,11 @@ def main():
     roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1",
                        K_MPPI, 0.6, 0.3, 44)
 
+    # ---- 5c. the in-hand path: RotateSingleObjectInHandLevel2-v1 MPPI ----
+    torch.cuda.empty_cache()
+    inhand |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
+                         "RotateSingleObjectInHandLevel2-v1", K_MPPI, 0.6, 0.3, 40)
+
     # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
 
@@ -764,7 +913,9 @@ def main():
                 "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
                 "library_ms": library_ms} | {
-                    k: numbers[k] for k in ("path_ms", "path_bound_ms") if k in numbers}
+                    k: numbers[k] for k in ("path_ms", "path_bound_ms", "stack_max_abs_err",
+                                            "stack_ms", "stack_plain_ms", "stack_bound_ms")
+                    if k in numbers}
 
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
     # path's K; path_ms and path_bound_ms: the MPPI path's own launches
@@ -776,6 +927,9 @@ def main():
         entry("megakernel_step", k2_src, k2_tpu, ycb) | {"inputs": f"PickSingleYCB-v1, K={K_YCB}"},
         entry("megakernel_step", k2_src, k2_tpu, plug) | {"inputs": f"PlugCharger-v1, K={K_CHECK}"},
         entry("megakernel_step", k2_src, k2_tpu, roll) | {"inputs": f"RollBall-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, inhand)
+        | {"inputs": f"RotateSingleObjectInHandLevel2-v1, K={K_CHECK}; stack_*: the hull stack "
+                     f"(sphere_hull, hull_hull), K={K_CHECK}"},
         entry("solve_psd", "maniskill_tpu_torch/csrc/solve_psd.cu",
               "maniskill_tpu/physics/pallas_kernels.py:27", k1, k1["library_ms"]),
     ]}))

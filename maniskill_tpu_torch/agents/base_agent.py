@@ -1,9 +1,10 @@
 """Agent layer: robot descriptors, controller assembly, proprioception.
 
 Port of ``maniskill_tpu/agents/base_agent.py`` (``install``,
-``proprioception``, URDF primitive collisions). A robot class declares its
-URDF, collision material overrides, extra primitive collisions, keyframes
-and controller configs; ``install`` wires it into a ``SceneSpecBuilder``.
+``proprioception``, URDF primitive collisions, ``auto_capsule_collisions``
+``:53-106``). A robot class declares its URDF, collision material
+overrides, extra primitive collisions, keyframes and controller configs;
+``install`` wires it into a ``SceneSpecBuilder``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,54 @@ def register_agent(cls):
     return cls
 
 
+def auto_capsule_collisions(spec, default_radius: float = 0.045, radius_map=None,
+                            tip_length: float = 0.08, friction: float = 0.3) -> List[dict]:
+    """Primitive collisions for a mesh-only URDF: one capsule per body from
+    its origin to each child's joint anchor (the link's structural axis),
+    a sphere where that segment has zero length, and a tip capsule of
+    ``tip_length`` along +z for a leaf body. Massless bodies get none."""
+    radius_map = radius_map or {}
+    out = []
+    children = {b: [] for b in range(spec.nb)}
+    for b in range(spec.nb):
+        par = int(spec.parent[b])
+        if par >= 0:
+            children[par].append(b)
+    for b in range(spec.nb):
+        if spec.mass[b] <= 1e-5:
+            continue  # a massless synthetic frame
+        name = spec.link_names[b]
+        r = radius_map.get(name, default_radius)
+        segs = [np.asarray(spec.joint_pos[c], np.float64) for c in children[b]]
+        if not segs:
+            segs = [np.array([0.0, 0.0, tip_length])]
+        for seg in segs:
+            L = float(np.linalg.norm(seg))
+            if L < 1e-6:
+                out.append(dict(link=name, type=GeomType.SPHERE,
+                                size=np.array([r, 0, 0], np.float32),
+                                offset_p=np.zeros(3, np.float32),
+                                offset_q=np.array([1, 0, 0, 0], np.float32),
+                                friction=friction))
+                continue
+            # the rotation taking +z onto the segment
+            z = seg / L
+            c = float(z[2])
+            if c > 1 - 1e-9:
+                q = np.array([1.0, 0, 0, 0])
+            elif c < -1 + 1e-9:
+                q = np.array([0.0, 1.0, 0, 0])
+            else:
+                ax = np.cross([0.0, 0.0, 1.0], z)
+                s_ = np.sqrt((1 + c) * 2)
+                q = np.array([s_ / 2, *(ax / s_)])
+            out.append(dict(link=name, type=GeomType.CAPSULE,
+                            size=np.array([r, max(L / 2 - r / 2, 0.01), 0], np.float32),
+                            offset_p=(seg / 2).astype(np.float32),
+                            offset_q=q.astype(np.float32), friction=friction))
+    return out
+
+
 class BaseAgent:
     uid: str = "base"
     urdf_path: str = ""
@@ -47,16 +96,25 @@ class BaseAgent:
     urdf_collision_filter: Dict[str, Sequence[int]] = {}
     balance_passive_force: bool = True
 
-    def __init__(self, device="cpu"):
-        self.robot_spec: RobotSpec = parse_urdf(self.urdf_path)
+    def __init__(self, device="cpu", control_mode: Optional[str] = None):
+        self.robot_spec: RobotSpec = self._make_robot_spec()
         self.nq = self.robot_spec.nb
-        # one control mode per robot in this slice: its first config
-        self.control_mode, cfgs = next(iter(self._controller_configs().items()))
+        cfgs = self._controller_configs()
+        if control_mode is None:
+            control_mode = next(iter(cfgs))
+        if control_mode not in cfgs:
+            raise KeyError(f"unknown control mode {control_mode!r}; available: {list(cfgs)}")
+        self.control_mode = control_mode
         named = {}
-        for name, cfg in cfgs.items():
+        for name, cfg in cfgs[control_mode].items():
             cfg.joint_indices = self._resolve_joints(cfg.joint_names)
             named[name] = JointController(cfg, self.robot_spec.qlim, device)
         self.controller = CompositeController(named, self.nq, device)
+
+    def _make_robot_spec(self) -> RobotSpec:
+        """The parsed URDF; a robot may override it (and set its keyframes
+        from the spec)."""
+        return parse_urdf(self.urdf_path)
 
     def _controller_configs(self) -> Dict[str, Dict[str, ControllerConfig]]:
         raise NotImplementedError

@@ -1,8 +1,9 @@
 """Joint-space PD controllers on batched tensors.
 
-Port of ``maniskill_tpu/agents/controllers/base.py`` for PickCube's control
-mode: ``PDJointPosControllerConfig`` and ``JointController`` in position
-mode, with delta targets and the mimic (one action, all joints) gripper.
+Port of ``maniskill_tpu/agents/controllers/base.py`` for the position
+modes: ``PDJointPosControllerConfig`` and ``JointController`` in position
+mode, with delta or absolute targets, raw (``normalize_action=False``) or
+scaled actions, and the mimic (one action, all joints) gripper.
 Velocity, pos-vel, passive, base-velocity, torque and end-effector
 controllers are not ported yet.
 """
@@ -46,6 +47,7 @@ class PDJointPosControllerConfig(ControllerConfig):
     force_limit: Union[float, Sequence[float]] = 1e10
     use_delta: bool = False  # targets are qpos + action
     mimic: bool = False  # one action drives all joints
+    normalize_action: bool = True  # action in [-1, 1] scaled to [lower, upper]
 
 
 class JointController:
@@ -67,6 +69,7 @@ class JointController:
             hi[:] = config.upper
         self.use_delta = config.use_delta
         self.mimic = config.mimic
+        self.normalize_action = config.normalize_action
         if self.mimic:
             if not (np.allclose(lo, lo[0]) and np.allclose(hi, hi[0])):
                 raise ValueError("mimic joints need one shared action range")
@@ -90,7 +93,8 @@ class JointController:
     def set_action(self, cstate: ControllerState, qpos: torch.Tensor,
                    action: torch.Tensor) -> ControllerState:
         """New drive targets from a (K, action_dim) action in [-1, 1]."""
-        a = clip_and_scale_action(action, self._low, self._high)
+        a = (clip_and_scale_action(action, self._low, self._high)
+             if self.normalize_action else action)
         if self.mimic:
             a = a.expand(a.shape[:-1] + (self.nj,))
         q = qpos[..., self._idx]

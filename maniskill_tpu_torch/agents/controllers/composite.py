@@ -22,9 +22,14 @@ class CompositeController:
         self.nq = nq
         self.device = device
         self.action_dim = sum(c.action_dim for c in controllers.values())
-        # actions are normalized to [-1, 1]
-        self.action_low = -np.ones(self.action_dim, np.float32)
-        self.action_high = np.ones(self.action_dim, np.float32)
+        # action bounds: [-1, 1] for a normalized controller, else its raw range
+        lows, highs = [], []
+        for c in controllers.values():
+            n = c.action_dim
+            lows.append(c.raw_low[:n] if not c.normalize_action else -np.ones(n, np.float32))
+            highs.append(c.raw_high[:n] if not c.normalize_action else np.ones(n, np.float32))
+        self.action_low = np.concatenate(lows).astype(np.float32)
+        self.action_high = np.concatenate(highs).astype(np.float32)
         # full-dof drive gains for the scene model
         self.kp = np.zeros(nq, dtype=np.float32)
         self.kd = np.zeros(nq, dtype=np.float32)

@@ -4,8 +4,8 @@ The JAX package's ``EnvState``/``SimState``/``DriveCmd`` arrive as dicts of
 numpy arrays keyed by field name (nested for ``EnvState``: ``sim``, ``cmd``,
 ``elapsed_steps``, ``extras``); the caller does the ``jax`` -> numpy step, so
 this module imports no JAX. The per-env convex-hull tables (``hull_verts``,
-``hull_faces``) come across with the rest of ``SimState``, so each env keeps
-its own object; so do kinematic poses (RollBall's goal region) and task
+``hull_faces``, one slot per hull geom: (K, n_hull, ...)) come across with
+the rest of ``SimState``, so each env keeps its own objects; so do kinematic poses (RollBall's goal region) and task
 extras (RollBall's ``reached`` latch). Fields the port does not model (the per-env PRNG key) are
 ignored on the way in and absent on the way out. A JAX ``CEMState`` arrives as its mean and sigma; its PRNG key is
 not carried (the port's planners draw with a ``torch.Generator``, and tests

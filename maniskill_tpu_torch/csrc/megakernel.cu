@@ -5,8 +5,9 @@
 // runs n_substeps physics substeps for every env: robot FK, geom world
 // poses (a free body's geoms at their offsets), narrowphase (plane_box,
 // box_box_onesided, box_box_corners, the free-free box_box, plane_hull and
-// box_hull against a convex hull whose contact cloud and face planes are
-// per-env rows of the input plane, and the eight sphere and capsule pairs),
+// box_hull, sphere_hull, capsule_hull and hull_hull against convex hulls
+// whose contact clouds and face planes are per-env rows of the input plane,
+// and the eight sphere and capsule pairs: all 17 pair functions),
 // warm-started velocity-level contact forces, the robot mass matrix and
 // bias with implicit drives, free-body terms, the monolithic Cholesky
 // pair solve (split impulse: velocity and position right-hand sides),
@@ -85,7 +86,8 @@ enum Param {
 enum PairFn {
   FN_PLANE_BOX, FN_BOX_BOX_ONESIDED, FN_BOX_BOX_CORNERS, FN_BOX_BOX, FN_PLANE_HULL,
   FN_BOX_HULL, FN_PLANE_SPHERE, FN_SPHERE_BOX, FN_BOX_SPHERE, FN_SPHERE_SPHERE,
-  FN_PLANE_CAPSULE, FN_SPHERE_CAPSULE, FN_CAPSULE_BOX, FN_CAPSULE_CAPSULE
+  FN_PLANE_CAPSULE, FN_SPHERE_CAPSULE, FN_CAPSULE_BOX, FN_CAPSULE_CAPSULE, FN_SPHERE_HULL,
+  FN_CAPSULE_HULL, FN_HULL_HULL
 };
 
 enum Kind { KIND_STATIC, KIND_KINEMATIC, KIND_FREE, KIND_ROBOT_LINK };
@@ -320,6 +322,48 @@ __device__ __noinline__ void round_contact(int fn, int c, V3 pa, Q4 qa, V3 sa, V
   *out = ct;
 }
 
+// a point against a hull's face-plane SDF (shapes.sphere_hull,
+// capsule_hull, hull_hull): sphere_hull's one point is a's centre;
+// capsule_hull's c = 0, 1, 2 are a's sample spheres at -hl, 0, +hl;
+// hull_hull's points 0 .. HULL_P-1 are a's contact cloud against b's planes,
+// HULL_P .. 2 HULL_P-1 b's cloud against a's with the normal negated. The
+// point goes into the hull's frame, through hull_sdf, and its normal back
+// out. A sphere's depth is its radius less the SDF, and its point sits
+// on the normal midway into the overlap; a cloud point keeps its place,
+// depth minus the SDF. Not inlined, as round_contact.
+__device__ __noinline__ void hull_contact(int fn, int c, V3 pa, Q4 qa, V3 sa, V3 pb, Q4 qb,
+                                          const float* col, size_t Ks, const int* mi,
+                                          int slot_a, int slot_b, Contact* out) {
+  const bool flip = fn == FN_HULL_HULL && c >= HULL_P;
+  V3 w;  // the point, in the world
+  if (fn == FN_HULL_HULL)
+    w = flip ? add(pb, qapply(qb, hull_point(col, Ks, mi, slot_b, c - HULL_P)))
+             : add(pa, qapply(qa, hull_point(col, Ks, mi, slot_a, c)));
+  else if (fn == FN_CAPSULE_HULL)
+    w = add(pa, scl(qapply(qa, mk3(0.0f, 0.0f, 1.0f)), sa.y * (float)(c - 1)));
+  else
+    w = pa;
+  const V3 ph = flip ? pa : pb;  // the hull the point is held against
+  const Q4 qh = flip ? qa : qb;
+  float sdf;
+  V3 nl;
+  hull_sdf(qapply(qconj(qh), sub(w, ph)), hull_faces(col, Ks, mi, flip ? slot_a : slot_b), Ks,
+           &sdf, &nl);
+  const V3 n = qapply(qh, nl);  // outward from the hull
+  Contact ct;
+  if (fn == FN_HULL_HULL) {
+    ct.pos = w;
+    ct.nrm = flip ? scl(n, -1.0f) : n;
+    ct.dep = -sdf;
+  } else {
+    const float dep = sa.x - sdf;
+    ct.pos = sub(w, scl(n, sa.x - 0.5f * dep));
+    ct.nrm = n;
+    ct.dep = dep;
+  }
+  *out = ct;
+}
+
 // candidate point `c` of one pair (shapes.plane_box / box_box_onesided /
 // box_box_corners / box_box / plane_hull / box_hull); normal from B toward
 // A, depth > 0 when penetrating. box_box: points 0-7 are A's corners and
@@ -327,13 +371,19 @@ __device__ __noinline__ void round_contact(int fn, int c, V3 pa, Q4 qa, V3 sa, V
 // normal negated. box_hull: points 0-7 are the box's corners against the
 // hull's faces, 8-47 the hull's contact cloud against the box with the
 // normal negated. plane_hull: the hull's contact cloud against the plane.
-// Spheres and capsules: round_contact.
+// Spheres and capsules: round_contact; spheres, capsules and hulls against
+// a hull: hull_contact.
 __device__ __forceinline__ Contact contact_point(int fn, int ga, int gb, int c,
                                                  const V3* gp, const Q4* gq,
                                                  const V3* gsz, const int* ghull,
                                                  const float* col, size_t Ks,
                                                  const int* mi) {
   Contact ct;
+  if (fn >= FN_SPHERE_HULL) {
+    hull_contact(fn, c, gp[ga], gq[ga], gsz[ga], gp[gb], gq[gb], col, Ks, mi, ghull[ga],
+                 ghull[gb], &ct);
+    return ct;
+  }
   if (fn >= FN_PLANE_SPHERE) {
     round_contact(fn, c, gp[ga], gq[ga], gsz[ga], gp[gb], gq[gb], gsz[gb], &ct);
     return ct;

@@ -5,7 +5,7 @@ Port of ``maniskill_tpu/envs/base_env.py``: ``EnvState``, ``TaskContext``,
 planners) and the ``state``/``state_dict``/``none`` obs modes. The JAX
 package writes single-env functions and vmaps them; here every function
 takes the batch dimension K leading. Not ported yet: the visual obs modes,
-the sparse reward, other robots and control modes, partial resets,
+the sparse reward, the robots and control modes the agents lack, partial resets,
 state-dict get/set and runtime drive-gain changes.
 
 The physics dispatch takes the CUDA mega-kernel (``physics/megakernel.py``)
@@ -116,6 +116,7 @@ class BaseEnv:
     def __init__(self, num_envs: int = 1, obs_mode: str = "state",
                  reward_mode: str = "normalized_dense",
                  robot_init_qpos_noise: float = 0.02,
+                 control_mode: Optional[str] = "pd_joint_delta_pos",
                  sim_backend: str = "auto", device=None):
         if obs_mode not in self.SUPPORTED_OBS_MODES:
             raise ValueError(f"obs_mode {obs_mode!r} not in {self.SUPPORTED_OBS_MODES}")
@@ -136,7 +137,8 @@ class BaseEnv:
         self.sim_backend = sim_backend
         self.sim_steps_per_control = self.SIM_FREQ // self.CONTROL_FREQ
 
-        self.agent: BaseAgent = REGISTERED_AGENTS[self.robot_uids](device=self.device)
+        self.agent: BaseAgent = REGISTERED_AGENTS[self.robot_uids](
+            device=self.device, control_mode=control_mode)
         self.control_mode = self.agent.control_mode
         builder = SceneSpecBuilder(self._sim_params())
         self._load_agent(builder)

@@ -5,8 +5,8 @@ Port of ``maniskill_tpu/physics/engine.py``: ``robot_fk``,
 ``_assignment_tables`` (``:291``), ``point_forces`` (``:304``),
 ``make_force_query`` (``:494``), ``pair_force_signs``, ``make_step_fn`` and
 its ``substep`` (``:537-1125``) and ``_trace_metadata`` (``:1127``). Not
-ported yet: actor-pair drives (``:919-1041``), the hull-hull pairs (only
-hull against plane and box is) and the legacy spring contact mode.
+ported yet: actor-pair drives (``:919-1041``) and the legacy spring
+contact mode.
 
 Clamps and maxima on the differentiated path go through ``math.clamps``,
 which gives JAX's derivative at a tie (0.5/0.5), so the step's tangents
@@ -130,11 +130,16 @@ def compute_contacts(model: SceneModel, state: SimState, body_pos, body_quat):
         ia = const(model, f"ia:{fn.__name__}", ia_arr, dev, torch.long)
         ib = const(model, f"ib:{fn.__name__}", ib_arr, dev, torch.long)
         args = [gpos[:, ia], gquat[:, ia], gsize[:, ia], gpos[:, ib], gquat[:, ib], gsize[:, ib]]
-        if getattr(fn, "hull_args", None) is not None:
-            # hull pairs also take the hull side's per-env contact cloud and
-            # face planes: static slot gathers (engine.py:216-229)
-            hb = const(model, f"hb:{fn.__name__}", model.geom_hull_slot[ib_arr], dev, torch.long)
-            args += [state.hull_verts[:, hb], state.hull_faces[:, hb]]
+        hargs = getattr(fn, "hull_args", None)
+        if hargs is not None:
+            # hull pairs also take each hull side's per-env contact cloud and
+            # face planes, A's before B's: static slot gathers
+            # (engine.py:216-229)
+            for side, g_arr in (("a", ia_arr), ("b", ib_arr)):
+                if side in hargs:
+                    h = const(model, f"h{side}:{fn.__name__}", model.geom_hull_slot[g_arr],
+                              dev, torch.long)
+                    args += [state.hull_verts[:, h], state.hull_faces[:, h]]
         c = fn(*args)  # (K, n_pairs, npts, ...)
         K = c.pos.shape[0]
         pos_l.append(c.pos.reshape(K, -1, 3))

@@ -14,10 +14,13 @@ The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
 version is the PyTorch engine step (``engine.make_step_fn``), which the
 wrapper takes for CPU tensors only.
 
-Hull pairs (``plane_hull``, ``box_hull``) read each env's contact cloud
-and face planes from rows of the input plane after the drive gains, as the
-JAX plan does (``:310-311``, ``_pack`` ``:358-360``); mass, inertia,
-``geom_size`` and the hull tables are per-env rows, never static tables.
+Hull pairs (``plane_hull``, ``sphere_hull``, ``box_hull``,
+``capsule_hull``, ``hull_hull``) read each env's contact cloud and face
+planes from rows of the input plane after the drive gains, as the JAX plan
+does (``:310-311``, ``_pack`` ``:358-360``), slot by slot: ``hull_hull``
+reads side a's slot (``geom_hull_slot`` of its first geom) beside side
+b's. Mass, inertia, ``geom_size`` and the hull tables are per-env rows,
+never static tables.
 
 ``KernelStep`` is the port of the JAX ``custom_jvp`` seam
 (``maniskill_tpu/envs/base_env.py:495-513``): a ``torch.autograd.Function``
@@ -48,7 +51,8 @@ BLOCK = 32  # threads per block: K=4096 envs -> 128 blocks over 132 SMs
 # pair functions the kernel implements, in the order of its PairFn enum
 _FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box", "plane_hull",
         "box_hull", "plane_sphere", "sphere_box", "box_sphere", "sphere_sphere",
-        "plane_capsule", "sphere_capsule", "capsule_box", "capsule_capsule")
+        "plane_capsule", "sphere_capsule", "capsule_box", "capsule_capsule",
+        "sphere_hull", "capsule_hull", "hull_hull")
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,7 +78,15 @@ def supports(model: SceneModel) -> bool:
     robot tree, pair functions among those the kernel implements, hull
     tables of the kernel's padded sizes, and sizes within its compile-time
     caps. (The port's ``SceneModel`` has no pair drives yet, so they need
-    no test here.)"""
+    no test here.)
+
+    The JAX kernel also refuses scenes whose hull pairs evaluate more than
+    160 face-plane SDF points a substep (``_hull_cost``, ``:63-80``): a
+    budget on the compile size and VMEM of its Python-unrolled Mosaic
+    program. This kernel loops over its point tables at run time, so its
+    code size does not grow with the scene, and the port keeps no such
+    budget: a scene's hull work shows in its time, not in whether it
+    runs."""
     caps = _caps()
     if model.params.contact_mode != "velocity" or model.robot is None:
         return False
@@ -261,6 +273,13 @@ OPS = dict(
     #                       (6 each) and 31 maxima; per face a tie test, a count and a normal sum (5);
     #                       the mean normal and its normalisation (15)
     box_hull_vertex=140,  # hull point into the world and the box frame, box SDF and normal, negated
+    sphere_hull=470,    # centre into the hull frame 33, hull SDF 398, normal out 30, depth 1,
+    #                     position 8
+    capsule_hull=487,   # axis (30 per pair, 3 points) 10, sample 7, then sphere_hull
+    hull_hull_a=498,    # A's point into the world 33, into B's frame 33, hull SDF 398, normal
+    #                     out 30, depth 1 (a box corner against a hull, box_hull_corner, costs
+    #                     the same)
+    hull_hull_b=501,    # B's point against A's planes: hull_hull_a and the negated normal
     # spheres and capsules, per point (a pair's shared terms shared out over
     # its points); quat_apply counts 30, a 3-vector add 3, a dot 5
     plane_sphere=51,    # plane normal 30, distance 9, position 8, negated normal and depth 4
@@ -326,9 +345,16 @@ def work(plan: _Plan, state: SimState, cmd: DriveCmd, n_substeps: int):
              + int((n_anc * (n_anc + 1) // 2).sum()) * OPS["mass_pair"]
              + plan.F * OPS["free_body"] + _cholesky_ops(plan.n_all))
     # a box_hull point is one of the box's 8 corners against the hull, or
-    # one of the hull's points against the box
-    narrow = sum(OPS[fn + ("_corner" if c < 8 else "_vertex") if fn == "box_hull" else fn]
-                 for fn, c in zip(np.asarray(_FNS)[plan.pfn], plan.pcorner))
+    # one of the hull's points against the box; a hull_hull point is one of
+    # A's points against B's planes, or one of B's against A's
+    def narrow_ops(fn, c):
+        if fn == "box_hull":
+            return OPS["box_hull_corner" if c < 8 else "box_hull_vertex"]
+        if fn == "hull_hull":
+            return OPS["hull_hull_a" if c < HULL_P else "hull_hull_b"]
+        return OPS[fn]
+
+    narrow = sum(narrow_ops(fn, c) for fn, c in zip(np.asarray(_FNS)[plan.pfn], plan.pcorner))
     # per active point: both contact passes' velocities of its two sides
     vel = (OPS["vel_robot_side"] * ((plan.pra >= 0).astype(int) + (plan.prb >= 0))
            + OPS["vel_free_side"] * ((plan.pfa >= 0).astype(int) + (plan.pfb >= 0)))

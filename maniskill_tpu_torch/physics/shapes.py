@@ -8,9 +8,9 @@ Port of ``maniskill_tpu/physics/shapes.py``: ``geom_local_half_extents``
 (``:198``) with ``_FACE_DIRS`` and ``_box_face_centers`` (``:188-195``),
 ``box_box_corners`` (``:281``), ``box_box_onesided`` (``:301``) and their
 helpers ``_box_corners`` and ``_point_box_sdf``; the convex-hull face-plane
-SDF ``_hull_sdf`` (``:325``), ``plane_hull`` (``:341``) and ``box_hull``
-(``:361``) with their ``hull_args`` tags; and ``contact_fn``.
-``sphere_hull``, ``capsule_hull`` and ``hull_hull`` are not ported yet.
+SDF ``_hull_sdf`` (``:325``), ``plane_hull`` (``:341``), ``sphere_hull``
+(``:350``), ``box_hull`` (``:361``), ``capsule_hull`` (``:378``) and
+``hull_hull`` (``:392``) with their ``hull_args`` tags; and ``contact_fn``.
 
 Every pair function emits a fixed number of candidate points; inputs are
 poses ``p (..., 3)``, ``q (..., 4)`` and half sizes ``s (..., 3)``, outputs
@@ -317,6 +317,17 @@ def plane_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
     return ContactPoints(w, (-n)[..., None, :].expand_as(w), -dist)
 
 
+def sphere_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
+    """A = sphere, B = hull: the centre against the hull SDF."""
+    r = sa[..., 0]
+    loc = quat_apply(quat_conjugate(qb), pa - pb)
+    sdf, nl = _hull_sdf(loc[..., None, :], fb)
+    n = quat_apply(qb, nl[..., 0, :])  # B -> A
+    depth = r - sdf[..., 0]
+    pos = pa - n * (r - 0.5 * depth)[..., None]
+    return ContactPoints(pos[..., None, :], n[..., None, :], depth[..., None])
+
+
 def box_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
     """A = box, B = hull: A's 8 corners against the hull SDF, then B's
     contact-cloud points against the box SDF with the normal negated (B->A)."""
@@ -333,9 +344,46 @@ def box_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
     )
 
 
-# which sides of each hull pair function consume (verts, faces) tables
+def capsule_hull(pa, qa, sa, pb, qb, sb, vb, fb) -> ContactPoints:
+    """A = capsule, B = hull: three spheres along the capsule's axis, at -hl,
+    0 and +hl, against the hull SDF."""
+    axis = quat_apply(qa, _unit_z(pa))
+    r, hl = sa[..., 0, None], sa[..., 1, None]
+    sign = const(_CONSTS, "samples", np.array([-1.0, 0.0, 1.0], np.float32), pa.device)
+    centers = pa[..., None, :] + axis[..., None, :] * (hl * sign)[..., None]  # (..., 3, 3)
+    loc = quat_apply(quat_conjugate(qb)[..., None, :], centers - pb[..., None, :])
+    sdf, nl = _hull_sdf(loc, fb)
+    n = quat_apply(qb[..., None, :], nl)
+    depth = r - sdf
+    pos = centers - n * (r - 0.5 * depth)[..., None]
+    return ContactPoints(pos, n, depth)
+
+
+def hull_hull(pa, qa, sa, pb, qb, sb, va, fa, vb, fb) -> ContactPoints:
+    """Both hulls: A's contact cloud against B's SDF, then B's cloud against
+    A's SDF with the normal negated (B->A)."""
+    wa = pa[..., None, :] + quat_apply(qa[..., None, :], va)  # (..., V, 3)
+    loc_a = quat_apply(quat_conjugate(qb)[..., None, :], wa - pb[..., None, :])
+    sdf_a, nl_a = _hull_sdf(loc_a, fb)
+    n_a = quat_apply(qb[..., None, :], nl_a)
+    wb = pb[..., None, :] + quat_apply(qb[..., None, :], vb)
+    loc_b = quat_apply(quat_conjugate(qa)[..., None, :], wb - pa[..., None, :])
+    sdf_b, nl_b = _hull_sdf(loc_b, fa)
+    n_b = quat_apply(qa[..., None, :], nl_b)
+    return ContactPoints(
+        torch.cat([wa, wb], dim=-2),
+        torch.cat([n_a, -n_b], dim=-2),
+        torch.cat([-sdf_a, -sdf_b], dim=-1),
+    )
+
+
+# which sides of each hull pair function consume (verts, faces) tables; a
+# pair with "ab" takes A's tables before B's
 plane_hull.hull_args = "b"
+sphere_hull.hull_args = "b"
 box_hull.hull_args = "b"
+capsule_hull.hull_args = "b"
+hull_hull.hull_args = "ab"
 
 
 # (type_a, type_b) -> (fn, n_points). The builder lists a pair's geom of the
@@ -356,7 +404,10 @@ PAIR_FUNCS = {
     (GeomType.CAPSULE, GeomType.BOX): (capsule_box, 3),
     (GeomType.CAPSULE, GeomType.CAPSULE): (capsule_capsule, 1),
     (GeomType.PLANE, GeomType.HULL): (plane_hull, HULL_P),
+    (GeomType.SPHERE, GeomType.HULL): (sphere_hull, 1),
     (GeomType.BOX, GeomType.HULL): (box_hull, 8 + HULL_P),
+    (GeomType.CAPSULE, GeomType.HULL): (capsule_hull, 3),
+    (GeomType.HULL, GeomType.HULL): (hull_hull, 2 * HULL_P),
 }
 
 

@@ -602,11 +602,11 @@ def plug():
 @pytest.mark.parametrize("task, P, subs", [("PlugCharger-v1", 453, 4), ("RollBall-v1", 47, 1)])
 def test_round_pair_functions_and_plan(plug, task, P, subs):
     """The sphere and capsule members of the kernel's PairFn enum follow
-    the hull ones, in the wrapper's order; PlugCharger-v1 (P=453, 20
+    the first two hull ones, in the wrapper's order; PlugCharger-v1 (P=453, 20
     substeps a control step) and RollBall-v1 (P=47) are supported, and
     PlugCharger's charger takes one free body's six columns (n_all = 15)."""
-    assert megakernel._FNS[6:] == ROUND_FNS
-    assert megakernel._enum("PairFn")[6:] == tuple(f"FN_{n.upper()}" for n in ROUND_FNS)
+    assert megakernel._FNS[6:14] == ROUND_FNS
+    assert megakernel._enum("PairFn")[6:14] == tuple(f"FN_{n.upper()}" for n in ROUND_FNS)
     e = plug if task == "PlugCharger-v1" else mtt.make(task, num_envs=1, device="cpu")
     assert megakernel.supports(e.model)
     assert (e.model.n_points, e.model.params.substeps) == (P, subs)
@@ -635,11 +635,15 @@ def test_work_counts_round_points(plug):
     assert ops2 > ops1 > 0 and c2["points"] == 2 * c1["points"] == 2 * 453 * K
 
 
-def _kernel_vs_plain(kern, sim, cmd, n, strict, K_):
-    """One launch against the plain step and a float64 plain step: with
-    ``strict`` every env within the tolerances; else (contact states) at
-    most 10 % of the envs beyond them and the kernel no further from the
-    float64 step than the float32 plain step (1.5 x its count, plus 2)."""
+def _kernel_vs_plain(kern, sim, cmd, n, strict, K_, ill_rule=False):
+    """One launch against the plain step and a float64 plain step. Envs
+    where ``strict`` holds (a bool or a (K,) mask) must be within the
+    tolerances. Of the others at most 10 % may leave them (with
+    ``ill_rule``, 10 % of those where the float32 plain step itself stays
+    within the tolerances of the float64 step: the in-hand scenes), and the
+    kernel must be no further from the float64 step than the float32 plain
+    step (1.5 x its count, plus 2). Returns the plain step's loaded points
+    (K, P)."""
     got, aux = kern(sim, cmd, n)
     ref, aux_ref = kern.plain(sim, cmd, n)
     f64, aux64 = _in_float64(kern.plain, _as64(sim), _as64(cmd), n)
@@ -653,13 +657,18 @@ def _kernel_vs_plain(kern, sim, cmd, n, strict, K_):
     def beyond(a, b, tol):
         return (a.double() - b.double()).abs().reshape(K_, -1).amax(1) > tol
 
+    strict = torch.as_tensor(strict, device=sim.qpos.device).expand(K_)
+    held = ~strict
+    if ill_rule:
+        for _a, b, c, tol in triples:
+            held &= ~beyond(b, c, tol)
     for a, b, c, tol in triples:
         assert torch.isfinite(a).all()
         out = beyond(a, b, tol)
-        if strict:
-            assert not out.any(), (out.nonzero().ravel(), tol)
+        assert not (out & strict).any(), ((out & strict).nonzero().ravel(), tol)
+        if strict.all():
             continue
-        assert int(out.sum()) <= 0.1 * K_, (int(out.sum()), tol)
+        assert int((out & held).sum()) <= 0.1 * K_, (int((out & held).sum()), tol)
         k64, p64 = int(beyond(a, c, tol).sum()), int(beyond(b, c, tol).sum())
         assert k64 <= 1.5 * p64 + 2, (k64, p64, tol)
     return (aux_ref["f_pt"].abs().sum(-1) > 0).cpu().numpy()
@@ -712,3 +721,170 @@ def test_round_scene_kernel_matches_plain():
     pfn = np.asarray(megakernel._FNS)[kern.plan.pfn]
     for name in ("box_sphere", "sphere_sphere", "sphere_capsule", "capsule_capsule"):
         assert loaded[:, pfn == name].any(1).mean() >= 0.9, name
+
+
+# ---- hulls against spheres, capsules and hulls: the in-hand task and the
+# hull stack built for sphere_hull and hull_hull --------------------------
+
+HULL_FNS = ("sphere_hull", "capsule_hull", "hull_hull")
+
+
+def touched_in_step(kern, sim, cmd, n):
+    """(K,) envs in which some point carries force in any sim step of ``n``
+    (the plain step, one sim step at a time: its ``f_pt`` is the last
+    substep's only)."""
+    hit = torch.zeros(sim.qpos.shape[0], dtype=torch.bool, device=sim.qpos.device)
+    for _ in range(n):
+        sim, aux = kern.plain(sim, cmd, 1)
+        hit |= (aux["f_pt"].abs().sum(-1) > 0).any(1) | (sim.contact_lam > 0).any(1)
+    return hit
+
+
+def test_hull_pairs_follow_kernel_enum():
+    """sphere_hull, capsule_hull and hull_hull close the kernel's PairFn
+    enum in the wrapper's order, and the port's pair table holds all 17
+    functions the kernel implements."""
+    from maniskill_tpu_torch.physics import shapes
+
+    assert megakernel._FNS[14:] == HULL_FNS
+    assert megakernel._enum("PairFn")[14:] == tuple(f"FN_{n.upper()}" for n in HULL_FNS)
+    table = {fn.__name__ for fn, _ in shapes.PAIR_FUNCS.values()}
+    assert table == set(megakernel._FNS) - {"box_box_onesided", "box_box_corners"}
+    assert len(megakernel._FNS) == 17
+
+
+@pytest.mark.parametrize("task, n_hull", [
+    ("RotateCubeInHandAllegro-v1", 0), ("RotateSingleObjectInHandLevel0-v1", 0),
+    ("RotateSingleObjectInHandLevel1-v1", 0), ("RotateSingleObjectInHandLevel2-v1", 1),
+    ("RotateSingleObjectInHandLevel3-v1", 1)])
+def test_inhand_models_are_supported(task, n_hull):
+    """Each in-hand model (the Allegro's 16 joints, n_all 22, P=80) is within
+    the kernel's caps, the env dispatches to it, and the hull levels carry
+    one hull slot of rows on the input plane (capsule_hull against it),
+    the cube levels none (capsule_box)."""
+    e = mtt.make(task, num_envs=1, device="cpu")
+    assert megakernel.supports(e.model) and isinstance(e.kernel, megakernel.MegaKernel)
+    plan = megakernel._Plan(e.model)
+    assert (plan.nq, plan.n_all, plan.P, plan.n_hull) == (16, 22, 80, n_hull)
+    assert plan.i_hfaces[1] - plan.i_hverts[0] == n_hull * (3 * 40 + 4 * 32)
+    names = set(np.asarray(megakernel._FNS)[plan.pfn])
+    assert names == {"capsule_hull" if n_hull else "capsule_box", "plane_capsule"}
+
+
+def test_work_counts_capsule_hull_points():
+    """The bound prices each capsule_hull sample by its row of ``OPS``:
+    with the object lifted far from the hand, the narrowphase of Level2's
+    step is 48 capsule_hull and 32 plane_capsule points."""
+    e = mtt.make("RotateSingleObjectInHandLevel2-v1", num_envs=K, device="cpu")
+    e.reset(seed=0)
+    plan = megakernel._Plan(e.model)
+    st = e._state
+    far = st.sim.replace(free_pose=st.sim.free_pose + torch.tensor([0, 0, 1.0, 0, 0, 0, 0]))
+    _, ops1, c1 = megakernel.work(plan, far, st.cmd, 1)
+    _, ops2, c2 = megakernel.work(plan, far, st.cmd, 2)
+    O = megakernel.OPS
+    names = np.asarray(megakernel._FNS)[plan.pfn]
+    assert sum(O[n] for n in names) == 48 * O["capsule_hull"] + 32 * O["plane_capsule"]
+    assert ops2 > ops1 > 0 and c2["points"] == 2 * c1["points"] == 2 * 80 * K
+
+
+@pytest.fixture(scope="module")
+def stack_scene():
+    from maniskill_tpu_torch.physics.hull_stack import hull_stack
+
+    return hull_stack(K, "cpu")
+
+
+def test_hull_stack_reads_both_hull_slots(stack_scene):
+    """The hull stack has two hull slots: the plane carries both envs'
+    tables slot-major, and the hull_hull pair's sides read slots 0 (the
+    slab) and 1 (the block) through the geoms' hull slots; the kernel
+    supports the scene."""
+    model, sim, cmd = stack_scene
+    assert model.n_hull == 2 and sim.hull_verts.shape == (K, 2, 40, 3)
+    assert megakernel.supports(model)
+    plan = megakernel._Plan(model)
+    plane = megakernel.pack(plan, sim, cmd)
+    assert plan.i_hfaces[1] - plan.i_hverts[0] == 2 * (3 * 40 + 4 * 32)
+    np.testing.assert_array_equal(plane[plan.i_hverts[0]:plan.i_hverts[1]].T,
+                                  sim.hull_verts.reshape(K, -1))
+    hh = plan.pfn == megakernel._FNS.index("hull_hull")
+    assert hh.sum() == 80 and plan.pcorner[hh].tolist() == list(range(80))
+    ga, gb = int(plan.pga[hh][0]), int(plan.pgb[hh][0])
+    assert (model.geom_hull_slot[ga], model.geom_hull_slot[gb]) == (0, 1)
+    assert [model.geoms[g].name for g in (ga, gb)] == ["slab", "block"]
+
+
+def test_work_counts_hull_hull_points(stack_scene):
+    """The bound prices A's cloud against B's planes and B's against A's
+    by their rows of ``OPS``; with the stack lifted apart, the narrowphase
+    is the sum over the point table."""
+    model, sim, cmd = stack_scene
+    plan = megakernel._Plan(model)
+    lift = torch.tensor([[0, 0, 0.0], [0, 0, 1.0], [0, 0, 2.0]])
+    far = sim.replace(free_pose=sim.free_pose + torch.cat([lift, torch.zeros(3, 4)], 1))
+    _, ops1, c1 = megakernel.work(plan, far, cmd, 1)
+    assert c1["active"] < 80 * K  # only the slab's points on the ground
+    O = megakernel.OPS
+    names = np.asarray(megakernel._FNS)[plan.pfn]
+    narrow = sum(O["hull_hull_a" if c < 40 else "hull_hull_b"] if n == "hull_hull"
+                 else O[n] for n, c in zip(names, plan.pcorner))
+    assert narrow == (40 * (O["hull_hull_a"] + O["hull_hull_b"]) + 2 * O["sphere_hull"]
+                      + 80 * O["plane_hull"] + O["plane_sphere"] + 40 * O["plane_box"])
+    _, ops, c = megakernel.work(plan, sim, cmd, 1)
+    assert c["active"] > c1["active"] and ops > ops1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", ["dropped", "settled"])
+def test_hull_stack_kernel_matches_plain(states):
+    """The hull stack through the CUDA kernel against the plain step on the
+    card, one control step, K=37: dropped (each body 1 mm over the one
+    below) and settled (10 sim steps of the plain step), under the referee
+    rule of ``_kernel_vs_plain`` with ``ill_rule`` (the landing amplifies float32 rounding:
+    free vel 4.4e-4 from a float64 step in the worst of 512 envs, median
+    8.5e-5; chip_smoke.py). In both, sphere_hull and both halves of
+    hull_hull carry force by the step's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from maniskill_tpu_torch.physics.hull_stack import hull_stack
+
+    model, sim, cmd = hull_stack(37, "cuda", settle_steps=0 if states == "dropped" else 10)
+    kern = megakernel.MegaKernel(model)
+    loaded = _kernel_vs_plain(kern, sim, cmd, 5, False, 37, ill_rule=True)
+    assert kern.launches == 1
+    plan = kern.plan
+    pfn = np.asarray(megakernel._FNS)[plan.pfn]
+    for mask in (pfn == "sphere_hull", (pfn == "hull_hull") & (plan.pcorner < 40),
+                 (pfn == "hull_hull") & (plan.pcorner >= 40)):
+        assert loaded[:, mask].any(1).mean() >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_inhand_kernel_matches_plain(states):
+    """RotateSingleObjectInHandLevel2-v1 (the Allegro hand, nq=16, n_all=22,
+    a hull per env against 16 capsules) through the CUDA kernel against the
+    plain step on the card, K=37: from reset states with the targets moved,
+    every env whose object touches nothing in the step (``touched_in_step``)
+    within the tolerances, the others by the referee rule of
+    ``_kernel_vs_plain`` with ``ill_rule``; from ``contact_state`` states (the dropped object settled
+    on the fingers) under their own command, by the referee rule of
+    ``_kernel_vs_plain`` with ``ill_rule``, with capsule_hull points loaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("RotateSingleObjectInHandLevel2-v1", num_envs=37, reward_mode="dense",
+                    device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    strict = (~touched_in_step(cenv.kernel, st.sim, cmd, 5) if states == "reset"
+              else torch.zeros(37, dtype=torch.bool, device="cuda"))
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, 5, strict, 37, ill_rule=True)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        pfn = np.asarray(megakernel._FNS)[cenv.kernel.plan.pfn]
+        assert loaded[:, pfn == "capsule_hull"].any(1).mean() >= 0.5
