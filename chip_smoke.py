@@ -6,8 +6,9 @@
 Phases (each passes or ends the script with a non-zero exit):
   1. build both CUDA libraries from the sources in this checkout, one
      ``nvcc`` per source, all at once: the physics mega-kernel (K2,
-     ``csrc/megakernel.cu``) and the batched SPD solve (K1,
-     ``csrc/solve_psd.cu``);
+     ``csrc/megakernel.cu``: one warp per env, its state in a slice of
+     shared memory) and the batched SPD solve (K1, ``csrc/solve_psd.cu``),
+     with the compiler's report (registers, stack, spills, shared memory);
   2. hold K2 against its plain PyTorch step on the card, for PickCube-v1
      and StackCube-v1 (two free cubes: the free-free box_box pair) at
      K=4096, for PickSingleYCB-v1 at K=8192 (the plane its MPPI path
@@ -21,14 +22,18 @@ Phases (each passes or ends the script with a non-zero exit):
      reset states and from states in contact (``contact_state``; the check
      fails unless every pair function and friction carry force there), then
      a 10-control-step settle check through the kernel alone; time the
-     kernel and its plain version and count the step's work for the bound;
+     kernel and its plain version and count the step's work for the bound,
+     with the scene's slice bytes and resident envs per SM, and check that
+     two launches on one plane give the same bits;
      the same for RotateSingleObjectInHandLevel2-v1 at K=4096 (the Allegro
      hand, nq 16, a hull per env on 16 capsules: capsule_hull,
      plane_capsule), reset envs whose dropped object touches the hand in
      the step and the settled contact states refereed by a float64 plain
      step, with the share of envs whose capsule_hull points carry force;
      then the hull stack (``physics/hull_stack.py``: sphere_hull and both
-     halves of hull_hull loaded), dropped and settled;
+     halves of hull_hull loaded), dropped and settled; and K2 on PickCube
+     reset states at K=1 (iLQR's rollouts) and at a ragged K=4,097, every
+     env within the tolerances;
   3. the differentiable step on the card: the JVP and the VJP of one
      StackCube ``_rollout_step`` through ``KernelStep`` (kernel primal,
      plain-step derivative) against those of the plain step, K=64;
@@ -75,6 +80,10 @@ K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
 H_PLAN, K_CEM, ELITES, CEM_ITERS, ILQR_ITERS = 60, 1024, 64, 4, 3
 TIMED_PLANS = 2
 K_SEAM = 64
+# the MPPI paths' bound counts every 5th launch of the warm-up solve
+# (rollout steps 0, 5, ..., 45): megakernel.work reruns the plain step
+# substep by substep, about two plain steps a launch (PlugCharger 1.2 s)
+PATH_BOUND_EVERY = 5
 # kernel vs plain tolerances (tests/test_torch_pickcube.py, from
 # tests/test_megakernel.py:48-67): float32 on both sides, sums in another
 # order; contact impulses are newtons under a stiff implicit law
@@ -324,6 +333,8 @@ def stack_phase(megakernel):
                 fail(f"{task} {label}: {name} loaded in only {100 * share:.1f} % of the envs")
     plane = megakernel.pack(plan, settled, cmd)
     kern.launch(plane, 5)
+    same_bits(kern, task, "settled", plane, 5)
+    occ = occupancy_line(kern, task)
     k_ms = event_ms(lambda: kern.launch(plane, 5), 20)
     p_ms = event_ms(lambda: kern.plain(settled, cmd, 5), 5)
     nbytes, ops, counts = megakernel.work(plan, settled, cmd, 5)
@@ -332,7 +343,28 @@ def stack_phase(megakernel):
           f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> {bytes_ms:.5f} ms, {ops} ops -> "
           f"{ops_ms:.5f} ms; points {counts})", flush=True)
     return dict(stack_max_abs_err=max(errs), stack_ms=k_ms, stack_plain_ms=p_ms,
-                stack_bound_ms=max(bytes_ms, ops_ms))
+                stack_bound_ms=max(bytes_ms, ops_ms), stack_slice_bytes=occ["slice_bytes"],
+                stack_envs_per_sm=occ["envs_per_sm"])
+
+
+def occupancy_line(kern, task):
+    """Print and return the scene's slice and resident envs per SM."""
+    floats, resident = kern.occupancy()
+    print(f"[time] {task}: slice {4 * floats} B of shared memory an env, {resident} envs "
+          "resident per SM", flush=True)
+    return dict(slice_bytes=4 * floats, envs_per_sm=resident)
+
+
+def same_bits(kern, task, label, plane, n_sub):
+    """Two launches on one plane must give identical outputs."""
+    import torch
+
+    a, b = kern.launch(plane, n_sub), kern.launch(plane, n_sub)
+    R = kern.plan.R_out
+    same = torch.equal(a[:, :R].view(torch.int32), b[:, :R].view(torch.int32))
+    print(f"[check] {task} {label}: two launches on one plane bit-identical: {same}")
+    if not same:
+        fail(f"{task} {label}: two launches on one plane differ")
 
 
 def _outputs(state, aux):
@@ -531,10 +563,12 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     # substeps), its bound and the plain step's time, on both input sets;
     # the kernels line reports the contact states
     n_sub = 5 * env.model.params.substeps
+    occ = occupancy_line(kern, task)
     timing = {}
     for label, (s_in, c_in) in dict(reset=(st.sim, cmd), contact=(cst.sim, ccmd)).items():
         plane = megakernel.pack(plan, s_in, c_in)
         kern.launch(plane, n_sub)
+        same_bits(kern, task, label, plane, n_sub)
         k_ms = event_ms(lambda: kern.launch(plane, n_sub), 20)
         p_ms = event_ms(lambda: kern.plain(s_in, c_in, 5), 5)
         nbytes, ops, counts = megakernel.work(plan, s_in, c_in, n_sub)
@@ -547,7 +581,32 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     k_ms, p_ms, bytes_ms, ops_ms = timing["contact"]
     return dict(max_err=max(err_reset, err_contact), ms=k_ms, plain_ms=p_ms,
                 bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations") | occ
+
+
+def ragged_phase(mtt):
+    """K2 against its plain step on PickCube reset states at K=1 (the
+    iLQR rollouts' width: one warp on the card) and at K=4,097 (one env
+    past a whole number of blocks), targets perturbed, every env held to
+    the tolerances. Returns the largest error."""
+    import torch
+
+    worst = 0.0
+    for k in (1, K_CHECK + 1):
+        env = mtt.make("PickCube-v1", num_envs=k, reward_mode="dense")
+        env.reset(seed=0)
+        st = env._state
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05 * torch.randn(
+            st.cmd.target_qpos.shape, generator=gen, device="cuda"))
+        launches = env.kernel.launches
+        err, _ = compare_step(env.kernel, f"PickCube-v1 K={k}", "reset", st.sim, cmd,
+                              referee=torch.zeros(k, dtype=torch.bool, device="cuda"))
+        if env.kernel.launches != launches + 1:
+            fail(f"PickCube-v1 K={k}: the check did not launch the kernel once")
+        worst = max(worst, err)
+    return worst
 
 
 def seam_phase(mtt, ILQR, ILQRConfig):
@@ -604,8 +663,8 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temp
     solves, K2's launches counted and its device time read around them.
     Returns the launches, the kernel's mean device time per launch in the
     timed solves, and the mean bound of a launch, counted by
-    ``megakernel.work`` on the inputs of each of the warm-up solve's
-    launches (the rollouts' own states and commands)."""
+    ``megakernel.work`` on the inputs of every PATH_BOUND_EVERY-th launch
+    of the warm-up solve (the rollouts' own states and commands)."""
     import torch
 
     env1 = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense")
@@ -614,11 +673,13 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temp
                                     temperature=temperature))
     ps = planner.init(seed=0)
     kern = env1.kernel
-    step, path_work = kern.step, []
+    step, path_work, calls = kern.step, [], [0]
 
     def counted_step(sim, cmd, n_steps):
-        path_work.append(megakernel.work(kern.plan, sim, cmd,
-                                         n_steps * env1.model.params.substeps)[:2])
+        if calls[0] % PATH_BOUND_EVERY == 0:
+            path_work.append(megakernel.work(kern.plan, sim, cmd,
+                                             n_steps * env1.model.params.substeps)[:2])
+        calls[0] += 1
         return step(sim, cmd, n_steps)
 
     kern.step = counted_step
@@ -672,7 +733,8 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temp
           f"{kernel_busy_ms / len(spans):.3f} ms per launch), "
           f"{100 * kernel_busy_ms / (dt * 1e3):.1f} % of the wall time; bound per launch on "
           f"the warm-up solve's inputs {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f} ms, "
-          f"operations {ops_ms:.5f} ms, mean of {len(path_work)} launches)", flush=True)
+          f"operations {ops_ms:.5f} ms, mean of {len(path_work)} launches: every "
+          f"{PATH_BOUND_EVERY}th of the warm-up solve's)", flush=True)
     profile_solve(planner, ps, env1._state)
     return dict(launches=launches, path_ms=kernel_busy_ms / len(spans),
                 path_bound_ms=max(bytes_ms, ops_ms))
@@ -844,11 +906,15 @@ def main():
         log = lib.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "stack frame" in line:
+                if any(w in line for w in ("registers", "spill", "stack frame", "smem")):
                     print(f"[build] {lib.name.split('_')[0]}: {line.strip()}")
+    caps = megakernel._caps()
+    print(f"[build] megakernel: {caps['WARPS']} envs (warps) a block, each env's slice of "
+          "shared memory sized per scene at launch (dynamic; [time] lines)", flush=True)
 
     # ---- 2. K2 against its plain version on each path's scene ----
     pick = kernel_phase(mtt, engine, megakernel, "PickCube-v1", pickcube_branches)
+    pick["ragged_max_abs_err"] = ragged_phase(mtt)
     stack = kernel_phase(mtt, engine, megakernel, "StackCube-v1", stackcube_branches)
     # a hull whose lowest point sits above its AABB half height (the reset
     # height) drops onto the table: up to 3 cm down. PickSingleYCB-v1 at
@@ -914,7 +980,10 @@ def main():
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
                 "library_ms": library_ms} | {
                     k: numbers[k] for k in ("path_ms", "path_bound_ms", "stack_max_abs_err",
-                                            "stack_ms", "stack_plain_ms", "stack_bound_ms")
+                                            "stack_ms", "stack_plain_ms", "stack_bound_ms",
+                                            "slice_bytes", "envs_per_sm",
+                                            "stack_slice_bytes", "stack_envs_per_sm",
+                                            "ragged_max_abs_err")
                     if k in numbers}
 
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the

@@ -3,11 +3,14 @@
 Port of the Pallas TPU kernel ``maniskill_tpu/physics/megakernel.py``
 (``_build_kernel`` -> ``kernel``, ``:494``, launched by
 ``make_pallas_step_fn``, ``:1729``). The kernel itself is CUDA C++ in
-``maniskill_tpu_torch/csrc/megakernel.cu`` (one env per thread; its header
-note says what bounds it and why it is built as it is). This module keeps
-the TPU kernel's env-last data layout: an input plane (R_in, K) and an
-output plane (R_out, K), row r of env k at ``r*K + k``, with the same row
-plan (``_Plan``) and component order as the JAX ``_pack``/``_unpack``.
+``maniskill_tpu_torch/csrc/megakernel.cu``: one warp per env, each env's
+state in a slice of shared memory (its header note says what bounds it and
+why it is built as it is). The planes are env-major: an input plane
+(K, W_in) and an output plane (K, W_out), env k's row r at ``k*W + r``,
+each row padded to a multiple of 4 floats (``W_in``, ``W_out``) so that a
+warp moves its env's row with 16-byte loads. The rows follow the TPU
+kernel's row plan (``_Plan``) and component order, as the JAX
+``_pack``/``_unpack``; only which index is major differs.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``maniskill_tpu_torch/_cuda.py``) and loaded with ``ctypes``. Its plain
@@ -46,7 +49,8 @@ from .hulls import HULL_F, HULL_P
 from .model import BodyKind, DriveCmd, SceneModel, SimState
 
 SOURCE = _cuda.CSRC / "megakernel.cu"
-BLOCK = 32  # threads per block: K=4096 envs -> 128 blocks over 132 SMs
+# dynamic shared memory one block may take on the H100 (227 KB)
+SMEM_BLOCK_MAX = 232448
 
 # pair functions the kernel implements, in the order of its PairFn enum
 _FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box", "plane_hull",
@@ -58,10 +62,13 @@ _FNS = ("plane_box", "box_box_onesided", "box_box_corners", "box_box", "plane_hu
 @functools.lru_cache(maxsize=None)
 def _caps():
     """Compile-time sizes of the kernel (#defines): the caps of its
-    thread-local arrays and the padded hull table sizes."""
+    per-env arrays (one body, dof, geom or free body a lane), the padded
+    hull table sizes, the envs (warps) of a block and the loading points
+    the kernel adds to the LHS together."""
     src = SOURCE.read_text()
     return {n: int(re.search(rf"#define {n} (\d+)", src).group(1))
-            for n in ("NB_MAX", "NALL_MAX", "G_MAX", "F_MAX", "HULL_P", "HULL_F")}
+            for n in ("NB_MAX", "NALL_MAX", "G_MAX", "F_MAX", "HULL_P", "HULL_F", "WARPS",
+                      "LOAD_BATCH")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,9 +83,9 @@ def _enum(name: str, source=SOURCE):
 def supports(model: SceneModel) -> bool:
     """Whether the CUDA kernel covers this model: velocity contact mode, one
     robot tree, pair functions among those the kernel implements, hull
-    tables of the kernel's padded sizes, and sizes within its compile-time
-    caps. (The port's ``SceneModel`` has no pair drives yet, so they need
-    no test here.)
+    tables of the kernel's padded sizes, sizes within its compile-time
+    caps, and a block's shared-memory slices within the card's 227 KB. (The port's ``SceneModel`` has no pair
+    drives yet, so they need no test here.)
 
     The JAX kernel also refuses scenes whose hull pairs evaluate more than
     160 face-plane SDF points a substep (``_hull_cost``, ``:63-80``): a
@@ -99,8 +106,14 @@ def supports(model: SceneModel) -> bool:
             or model.hull_faces0.shape[1:] != (caps["HULL_F"], 4)):
         return False
     n_all = model.nq + 6 * model.n_free
-    return (model.nq <= caps["NB_MAX"] and n_all <= caps["NALL_MAX"]
-            and len(model.geoms) <= caps["G_MAX"] and model.n_free <= caps["F_MAX"])
+    if not (model.nq <= caps["NB_MAX"] and n_all <= caps["NALL_MAX"]
+            and len(model.geoms) <= caps["G_MAX"] and model.n_free <= caps["F_MAX"]):
+        return False
+    return 4 * caps["WARPS"] * _Plan(model).slice_floats() <= SMEM_BLOCK_MAX
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
 
 
 class _Plan:
@@ -159,6 +172,8 @@ class _Plan:
         self.o_bquat = take(4 * self.nb)
         self.o_axis = take(3 * self.nb)
         self.R_out = off
+        # the planes' row widths: each env's row padded to 16 bytes
+        self.W_in, self.W_out = _pad4(self.R_in), _pad4(self.R_out)
 
         # per-point tables in the engine's point order (_trace_metadata):
         # pair function, geoms of both sides, sample index within the pair
@@ -189,6 +204,21 @@ class _Plan:
         # impulse gain d_n0 = k h / β, in float32 as the engine computes it
         self.dn0 = (np.asarray(ck, np.float32) * np.float32(h)
                     / np.float32(params.contact_beta)).astype(np.float32)
+
+    def slice_floats(self) -> int:
+        """Floats of one env's shared-memory slice in the kernel
+        (``make_layout`` in the source): the padded input row, 41 a body
+        (position, axis, the two joint columns, both velocities, centre of
+        mass, the bias pair: 3 each; orientation and joint rotation: 4
+        each; world inertia: 6), 7 a geom (world pose), the packed LHS, 3 a
+        dof (rv, rp, dinv), a batch of LOAD_BATCH loading points (4 a point
+        and dof: its column and normal part; 16 a point: its record), 7 a
+        free body (the integrated pose) and 7 a point (pass 1's contact),
+        rounded up to 4."""
+        B = _caps()["LOAD_BATCH"]
+        n = (self.W_in + 41 * self.nq + 7 * self.G + self.n_all * (self.n_all + 1) // 2
+             + 3 * self.n_all + B * (4 * self.n_all + 16) + 7 * self.F + 7 * self.P)
+        return _pad4(n)
 
     def tables(self, source=SOURCE):
         """(mf float32, mi int32): the static model tables and the header
@@ -402,7 +432,8 @@ _ROW_NAMES = dict(
 
 
 def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
-    """Batched (K-leading) state and command -> (R_in, K) float32 plane."""
+    """Batched (K-leading) state and command -> (K, W_in) float32 plane,
+    env-major: the row plan's R_in floats, then zeros to W_in."""
     K = state.qpos.shape[0]
     model = plan.model
 
@@ -426,24 +457,24 @@ def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
     ]
     if plan.n_hull > 0:
         parts += [state.hull_verts.reshape(K, -1), state.hull_faces.reshape(K, -1)]
-    flat = torch.cat([p.to(torch.float32) for p in parts], dim=1)
-    return flat.t().contiguous()
+    if plan.W_in > plan.R_in:
+        parts.append(state.qpos.new_zeros((K, plan.W_in - plan.R_in)))
+    return torch.cat([p.to(torch.float32) for p in parts], dim=1)
 
 
 def unpack(plan: _Plan, out: torch.Tensor, state: SimState):
-    """(R_out, K) plane -> (new SimState, aux dict)."""
-    flat = out.t()
-    K = flat.shape[0]
+    """(K, W_out) plane -> (new SimState, aux dict)."""
+    K = out.shape[0]
     F, P, nb = plan.F, plan.P, plan.nb
 
     def rows(sl):
-        return flat[:, sl[0]:sl[1]]
+        return out[:, sl[0]:sl[1]]
 
     new_state = state.replace(
         qpos=rows(plan.o_qpos).contiguous(),
         qvel=rows(plan.o_qvel).contiguous(),
-        free_pose=rows(plan.o_free_pose).reshape(K, F, 7),
-        free_vel=rows(plan.o_free_vel).reshape(K, F, 6),
+        free_pose=rows(plan.o_free_pose).reshape(K, F, 7).contiguous(),
+        free_vel=rows(plan.o_free_vel).reshape(K, F, 6).contiguous(),
         contact_lam=rows(plan.o_lam).contiguous(),
         contact_lam_t=rows(plan.o_lamt).reshape(K, 3, P).transpose(1, 2),
     )
@@ -459,8 +490,10 @@ def unpack(plan: _Plan, out: torch.Tensor, state: SimState):
 def load_library(path=None):
     """The kernel's library: this package's build, or the one at ``path``."""
     lib = ctypes.CDLL(str(path)) if path is not None else _cuda.load("megakernel")
-    lib.mk_step.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mk_step.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mk_step.restype = ctypes.c_int
+    lib.mk_slice_floats.argtypes = [ctypes.c_int] * 5
+    lib.mk_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.mk_error_string.argtypes = [ctypes.c_int]
     lib.mk_error_string.restype = ctypes.c_char_p
     return lib
@@ -553,6 +586,7 @@ class MegaKernel:
         self._plain_step = None
         self._lib = None
         self._host_tables = None
+        self._occupancy = None
 
     def __call__(self, state: SimState, cmd: DriveCmd, sim_steps: int):
         dev = state.qpos.device
@@ -579,31 +613,51 @@ class MegaKernel:
             self._plain_step = make_step_fn(self.model)
         return self._plain_step(state, cmd, sim_steps, return_aux=True)
 
+    def occupancy(self):
+        """``(slice_floats, envs_per_sm)`` of this model's launches: one
+        env's shared-memory slice and the envs an SM holds
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: registers and
+        shared memory)."""
+        if self._occupancy is None:
+            lib, n = self._library(), self.plan.slice_floats()
+            self._occupancy = (n, lib.mk_warps_per_block() * lib.mk_blocks_per_sm(n))
+        return self._occupancy
+
+    def _library(self):
+        """The built kernel, its static tables, and a check that the
+        source's slice layout is the one ``_Plan.slice_floats`` counts."""
+        if self._lib is None:
+            lib, p = load_library(), self.plan
+            n = lib.mk_slice_floats(p.nq, p.F, p.G, p.P, p.W_in)
+            if n != p.slice_floats():
+                raise RuntimeError(f"the kernel's slice has {n} floats, the plan counts "
+                                   f"{p.slice_floats()}")
+            self._lib, self._host_tables = lib, p.tables()
+        return self._lib
+
     def launch(self, plane: torch.Tensor, n_substeps: int) -> torch.Tensor:
-        """Run the kernel on an (R_in, K) plane; returns the (R_out, K) plane."""
+        """Run the kernel on a (K, W_in) plane; returns the (K, W_out) plane."""
         plan = self.plan
         if plane.device.type != "cuda":
             raise ValueError(f"the kernel needs a CUDA tensor, got {plane.device}")
-        if plane.dtype != torch.float32 or plane.dim() != 2 or plane.shape[0] != plan.R_in:
-            raise ValueError(f"expected a float32 ({plan.R_in}, K) plane, got "
+        if plane.dtype != torch.float32 or plane.dim() != 2 or plane.shape[1] != plan.W_in:
+            raise ValueError(f"expected a float32 (K, {plan.W_in}) plane, got "
                              f"{plane.dtype} {tuple(plane.shape)}")
-        if not plane.is_contiguous():
-            raise ValueError("the input plane must be contiguous")
-        K = plane.shape[1]
+        if not plane.is_contiguous() or plane.data_ptr() % 16:
+            raise ValueError("the input plane must be contiguous and 16-byte aligned")
+        K = plane.shape[0]
         if n_substeps < 1 or K < 1:
             raise ValueError(f"need n_substeps >= 1 and K >= 1, got {n_substeps}, {K}")
-        if self._lib is None:
-            self._lib = load_library()
-            self._host_tables = plan.tables()
+        lib = self._library()
         mf, mi = self._host_tables
         mf_t = const(self, "mf", mf, plane.device, torch.float32)
         mi_t = const(self, "mi", mi, plane.device, torch.int32)
-        out = torch.empty((plan.R_out, K), dtype=torch.float32, device=plane.device)
+        out = torch.empty((K, plan.W_out), dtype=torch.float32, device=plane.device)
         stream = torch.cuda.current_stream(plane.device).cuda_stream
-        err = self._lib.mk_step(plane.data_ptr(), out.data_ptr(), mf_t.data_ptr(),
-                                mi_t.data_ptr(), K, n_substeps, BLOCK, stream)
+        err = lib.mk_step(plane.data_ptr(), out.data_ptr(), mf_t.data_ptr(), mi_t.data_ptr(), K,
+                          n_substeps, plan.nq, plan.F, plan.G, plan.P, plan.W_in, plan.W_out,
+                          stream)
         if err != 0:
-            raise RuntimeError("mega-kernel launch failed: "
-                               + self._lib.mk_error_string(err).decode())
+            raise RuntimeError("mega-kernel launch failed: " + lib.mk_error_string(err).decode())
         self.launches += 1
         return out

@@ -2,7 +2,7 @@
 static tables, the model gate and the device dispatch, on the CPU.
 
 The kernel itself runs only on a CUDA device: ``test_kernel_matches_plain``
-is marked ``cuda`` and skips without one. On a GPU host run it with
+and the other ``cuda`` cases skip without one. On a GPU host run it with
 ``python -m pytest --noconftest tests/test_torch_megakernel.py -m cuda``.
 """
 import copy
@@ -53,25 +53,29 @@ def test_row_plan_matches_pickcube(env):
 
 
 def test_pack_unpack_round_trip(env):
+    """The planes are env-major: env k's row is ``plane[k]``, the row plan's
+    R_in floats padded with zeros to W_in, a multiple of 4 (16-byte rows)."""
     plan = megakernel._Plan(env.model)
     sim, cmd = _random_state(env, 0)
     plane = megakernel.pack(plan, sim, cmd)
-    assert plane.shape == (plan.R_in, K) and plane.is_contiguous()
+    assert plane.shape == (K, plan.W_in) and plane.is_contiguous()
+    assert (plan.W_in, plan.W_out) == (724, 1076)
+    assert not plane[:, plan.R_in:].any()
     P = plan.P
-    np.testing.assert_array_equal(plane[plan.i_qpos[0]:plan.i_qpos[1]].T, sim.qpos)
-    lamt = plane[plan.i_lamt[0]:plan.i_lamt[1]].T.reshape(K, 3, P)
+    np.testing.assert_array_equal(plane[:, plan.i_qpos[0]:plan.i_qpos[1]], sim.qpos)
+    lamt = plane[:, plan.i_lamt[0]:plan.i_lamt[1]].reshape(K, 3, P)
     np.testing.assert_array_equal(lamt.transpose(1, 2), sim.contact_lam_t)
-    fi = plane[plan.i_finertia[0]:plan.i_finertia[1]].T
+    fi = plane[:, plan.i_finertia[0]:plan.i_finertia[1]]
     np.testing.assert_array_equal(fi[:, [0, 3, 5]], sim.free_inertia[:, 0].diagonal(dim1=-2, dim2=-1))
-    np.testing.assert_array_equal(plane[plan.i_kp[0]:plan.i_kp[1]].T, cmd.kp)
+    np.testing.assert_array_equal(plane[:, plan.i_kp[0]:plan.i_kp[1]], cmd.kp)
     # an output plane built from the state's own rows unpacks to that state
-    out = torch.zeros(plan.R_out, K)
+    out = torch.zeros(K, plan.W_out)
     for sl, x in ((plan.o_qpos, sim.qpos), (plan.o_qvel, sim.qvel),
                   (plan.o_free_pose, sim.free_pose.reshape(K, -1)),
                   (plan.o_free_vel, sim.free_vel.reshape(K, -1)),
                   (plan.o_lam, sim.contact_lam),
                   (plan.o_lamt, sim.contact_lam_t.transpose(1, 2).reshape(K, -1))):
-        out[sl[0]:sl[1]] = x.T
+        out[:, sl[0]:sl[1]] = x
     back, aux = megakernel.unpack(plan, out, sim)
     for name in ("qpos", "qvel", "free_pose", "free_vel", "contact_lam", "contact_lam_t"):
         np.testing.assert_array_equal(getattr(back, name), getattr(sim, name), name)
@@ -400,10 +404,11 @@ def test_hull_rows_follow_the_drive_gains(hull):
     plan = megakernel._Plan(hull.model)
     st = hull._state
     plane = megakernel.pack(plan, st.sim, st.cmd)
-    assert plan.R_in == plan.i_flim[1] + 3 * 40 + 4 * 32 == plane.shape[0]
-    np.testing.assert_array_equal(plane[plan.i_hverts[0]:plan.i_hverts[1]].T,
+    assert plan.R_in == plan.i_flim[1] + 3 * 40 + 4 * 32
+    assert plane.shape == (K, plan.W_in) and plan.W_in - plan.R_in in range(4)
+    np.testing.assert_array_equal(plane[:, plan.i_hverts[0]:plan.i_hverts[1]],
                                   st.sim.hull_verts.reshape(K, -1))
-    np.testing.assert_array_equal(plane[plan.i_hfaces[0]:plan.i_hfaces[1]].T,
+    np.testing.assert_array_equal(plane[:, plan.i_hfaces[0]:plan.i_hfaces[1]],
                                   st.sim.hull_faces.reshape(K, -1))
     assert len(set(st.extras["model_id"].tolist())) > 1  # rows differ per env
     mf, mi = plan.tables()
@@ -806,7 +811,7 @@ def test_hull_stack_reads_both_hull_slots(stack_scene):
     plan = megakernel._Plan(model)
     plane = megakernel.pack(plan, sim, cmd)
     assert plan.i_hfaces[1] - plan.i_hverts[0] == 2 * (3 * 40 + 4 * 32)
-    np.testing.assert_array_equal(plane[plan.i_hverts[0]:plan.i_hverts[1]].T,
+    np.testing.assert_array_equal(plane[:, plan.i_hverts[0]:plan.i_hverts[1]],
                                   sim.hull_verts.reshape(K, -1))
     hh = plan.pfn == megakernel._FNS.index("hull_hull")
     assert hh.sum() == 80 and plan.pcorner[hh].tolist() == list(range(80))
@@ -888,3 +893,153 @@ def test_inhand_kernel_matches_plain(states):
     if states == "contact":
         pfn = np.asarray(megakernel._FNS)[cenv.kernel.plan.pfn]
         assert loaded[:, pfn == "capsule_hull"].any(1).mean() >= 0.5
+
+
+# ---- the env-major planes and the kernel's shared-memory slice -----------
+
+def test_output_plane_is_env_major(stack_scene):
+    """Env k's outputs are row k of the (K, W_out) plane, in the row plan's
+    order and component order: unpack reads each field of env k from
+    ``out[k, row]``. The hull stack (three free bodies, two hull slots)
+    pads its input row, and pack keeps each env's own hull tables in its
+    row."""
+    model, sim, cmd = stack_scene
+    plan = megakernel._Plan(model)
+    assert plan.W_in == 1532 and plan.W_out == 1568 and plan.R_in == 1530
+    plane = megakernel.pack(plan, sim, cmd)
+    assert plane.shape == (K, 1532) and not plane[:, plan.R_in:].any()
+    for k in range(K):
+        np.testing.assert_array_equal(plane[k, plan.i_hfaces[0]:plan.i_hfaces[1]],
+                                      sim.hull_faces[k].reshape(-1))
+    out = torch.arange(K * plan.W_out, dtype=torch.float32).reshape(K, plan.W_out)
+    new, aux = megakernel.unpack(plan, out, sim)
+    F, P, nb = plan.F, plan.P, plan.nb
+    for k in range(K):
+        assert new.qpos[k].tolist() == out[k, plan.o_qpos[0]:plan.o_qpos[1]].tolist()
+        assert new.free_pose[k, 2, 3] == out[k, plan.o_free_pose[0] + 7 * 2 + 3]
+        assert new.contact_lam_t[k, 5, 1] == out[k, plan.o_lamt[0] + P + 5]
+        assert aux["f_pt"][k, 7, 2] == out[k, plan.o_fpt[0] + 2 * P + 7]
+        assert aux["body_quat"][k, 3, 1] == out[k, plan.o_bquat[0] + nb + 3]
+    assert new.free_pose.shape == (K, F, 7) and new.free_pose.is_contiguous()
+
+
+@pytest.mark.parametrize("task, floats", [
+    # W_in 724 + 41 x 9 bodies + 7 x 8 geoms + TRI(15) 120 + 3 x 15 dofs
+    # + 8 loading points x (4 x 15 + 16) + 7 x 1 free body + 7 x 136
+    # points = 2,881 -> 2,884
+    ("PickCube-v1", 2884),
+    # W_in 896 + 41 x 16 + 7 x 18 + TRI(22) 253 + 3 x 22 + 8 x (4 x 22 +
+    # 16) + 7 + 7 x 80 = 3,396
+    ("RotateSingleObjectInHandLevel2-v1", 3396)])
+def test_slice_follows_a_hand_count(task, floats):
+    """The floats of one env's shared-memory slice against a count by hand
+    of make_layout's sections."""
+    e = mtt.make(task, num_envs=1, device="cpu")
+    plan = megakernel._Plan(e.model)
+    assert plan.slice_floats() == floats and floats % 4 == 0
+
+
+_IDS = ["PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "RollBall-v1",
+        "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
+        "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
+        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1"]
+
+
+@pytest.mark.parametrize("task", _IDS + ["hull stack"])
+def test_every_ported_scene_fits_the_kernel(task):
+    """Every registered id and the hull stack are within the kernel's caps
+    (a body, dof and geom a lane), a block's slices (WARPS envs) fit its
+    shared memory, and ``supports`` takes them, so the env dispatches to
+    the kernel and never quietly to the plain step."""
+    from maniskill_tpu_torch.envs.registration import REGISTERED_ENVS
+
+    assert sorted(REGISTERED_ENVS) == _IDS
+    if task == "hull stack":
+        from maniskill_tpu_torch.physics.hull_stack import hull_stack
+
+        model = hull_stack(1, "cpu")[0]
+    else:
+        e = mtt.make(task, num_envs=1, device="cpu")
+        model = e.model
+        assert isinstance(e.kernel, megakernel.MegaKernel)
+    caps = megakernel._caps()
+    plan = megakernel._Plan(model)
+    assert megakernel.supports(model)
+    assert max(plan.nq, plan.n_all, plan.G) <= 32 and plan.F <= caps["F_MAX"]
+    assert 4 * caps["WARPS"] * plan.slice_floats() <= megakernel.SMEM_BLOCK_MAX
+
+
+def test_supports_refuses_a_slice_beyond_shared_memory(env, monkeypatch):
+    """A model whose block of slices cannot fit the card's shared memory is
+    refused (and so never launched)."""
+    assert megakernel.supports(env.model)
+    block = 4 * megakernel._caps()["WARPS"] * megakernel._Plan(env.model).slice_floats()
+    monkeypatch.setattr(megakernel, "SMEM_BLOCK_MAX", block - 4)
+    assert not megakernel.supports(env.model)
+
+
+def _reset_vs_plain(kern, sim, cmd, K_):
+    """One control step through the kernel against the plain step, every
+    env within the tolerances of ``test_kernel_matches_plain``."""
+    got, aux = kern(sim, cmd, 5)
+    ref, aux_ref = kern.plain(sim, cmd, 5)
+    torch.cuda.synchronize()
+    pairs = [(getattr(got, n), getattr(ref, n), tol) for n, tol in dict(
+        qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+        contact_lam=5e-3, contact_lam_t=5e-3).items()]
+    pairs += [(aux[n], aux_ref[n], 2e-5) for n in ("body_pos", "body_quat", "axis_w")]
+    pairs += [(aux["f_pt"], aux_ref["f_pt"], 5e-3)]
+    for a, b, tol in pairs:
+        assert a.shape[0] == K_ and torch.isfinite(a).all()
+        env_err = (a - b).abs().reshape(K_, -1).amax(1)
+        assert bool((env_err <= tol).all()), (env_err.max(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_", [1, 33, 4097])
+def test_ragged_k_matches_plain(K_):
+    """PickCube reset states at K = 1 (iLQR's rollouts: one warp on the
+    card), 33 and 4,097 (a warp past a whole number of blocks of four or
+    of 32 threads) through the kernel against the plain step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("PickCube-v1", num_envs=K_, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    _reset_vs_plain(cenv.kernel, st.sim, st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05), K_)
+    assert cenv.kernel.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["PickCube-v1", "PlugCharger-v1"])
+def test_repeat_launches_are_bit_identical(task):
+    """Two launches on one plane give the same bits (no float atomics, no
+    order that depends on scheduling), from states in contact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv.contact_state(cenv._state, torch.Generator(device="cuda").manual_seed(0))
+    kern = cenv.kernel
+    plane = megakernel.pack(kern.plan, st.sim, st.cmd)
+    n_sub = 5 * cenv.model.params.substeps
+    a, b = kern.launch(plane, n_sub), kern.launch(plane, n_sub)
+    torch.cuda.synchronize()
+    R = kern.plan.R_out
+    assert torch.equal(a[:, :R].view(torch.int32), b[:, :R].view(torch.int32))
+    assert kern.launches == 2
+
+
+@pytest.mark.cuda
+def test_launch_refused_for_shared_memory_raises():
+    """A slice the card cannot give a block (a plan widened to 64,000
+    floats a row) is refused at launch, and the wrapper raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("PickCube-v1", num_envs=4, device="cuda")
+    kern = cenv.kernel
+    kern.plan = copy.copy(kern.plan)
+    kern.plan.W_in = 64000
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kern.launch(torch.zeros((4, 64000), device="cuda"), 5)
+    assert kern.launches == 0
