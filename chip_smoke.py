@@ -31,9 +31,19 @@ Phases (each passes or ends the script with a non-zero exit):
      the step and the settled contact states refereed by a float64 plain
      step, with the share of envs whose capsule_hull points carry force;
      then the hull stack (``physics/hull_stack.py``: sphere_hull and both
-     halves of hull_hull loaded), dropped and settled; and K2 on PickCube
-     reset states at K=1 (iLQR's rollouts) and at a ragged K=4,097, every
-     env within the tolerances;
+     halves of hull_hull loaded), dropped and settled; the articulated
+     scenes (robot-only, F=0, a kinematic forest of the robot's tree and
+     an object's) FoldSuitcaseModels-v1 (all four containers present),
+     TurnFaucet-v1 and OpenCabinetDrawer-v1 (the Fetch) at K=4096, reset
+     states (envs where a point carries force within the step refereed,
+     the rest held in full) and contact states (fingers pressing the lid,
+     the handle or the drawer: box_box_corners points with a robot link
+     on each side, whose share of loaded envs is printed and gated; a lid
+     or a drawer past its open limit), then a 10-control-step settle of the contact
+     states through the kernel, with the share of envs whose object sits
+     in its open-limit band (gated for the suitcase's lid); and K2 on
+     PickCube reset states at K=1 (iLQR's rollouts) and at a ragged
+     K=4,097, every env within the tolerances;
   3. the differentiable step on the card: the JVP and the VJP of one
      StackCube ``_rollout_step`` through ``KernelStep`` (kernel primal,
      plain-step derivative) against those of the plain step, K=64;
@@ -46,7 +56,13 @@ Phases (each passes or ends the script with a non-zero exit):
      0.1): one warm-up solve and 5 timed solves, 50 kernel launches each;
      then the PlugCharger-v1, RollBall-v1 and
      RotateSingleObjectInHandLevel2-v1 paths at the bench shape (H=50,
-     K=4096, sigma 0.6, temperature 0.3) the same way;
+     K=4096, sigma 0.6, temperature 0.3) the same way; then the
+     articulated paths: FoldSuitcase-v1 at the bench shape, TurnFaucet-v1
+     (H=20, K=2048, sigma 0.5, temperature 0.2) and OpenCabinetDrawer-v1
+     (H=40, K=2048, a sigma per action dimension, temperature 0.2, the
+     cabinet's approach prior as the first nominal), the JAX package's
+     planner configs (each env class's ``MPPI_CONFIG``), one kernel launch a
+     rollout step;
   6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
      iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 2
@@ -70,7 +86,7 @@ import subprocess
 import sys
 import time
 
-H, K_MPPI, K_CHECK = 50, 4096, 4096
+K_CHECK = 4096
 TIMED_SOLVES = 5
 # PickSingleYCB-v1 MPPI, BASELINE config #5 (the JAX package's
 # tools/solve_tasks.py:90-94)
@@ -323,7 +339,7 @@ def stack_phase(megakernel):
     errs = []
     for label, s_in in (("dropped", sim), ("settled", settled)):
         referee = torch.ones(K_CHECK, dtype=torch.bool, device="cuda")
-        err, ref = compare_step(kern, task, label, s_in, cmd, referee, ill_rule=True)
+        err, _, ref = compare_step(kern, task, label, s_in, cmd, referee, ill_rule=True)
         errs.append(err)
         loaded = ref["f_pt"].abs().sum(-1) > 0
         for name, m in masks.items():
@@ -376,7 +392,7 @@ def _env_err(a, b):
     return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(1)
 
 
-def compare_step(kern, task, label, sim, cmd, referee, ill_rule=False):
+def compare_step(kern, task, label, sim, cmd, referee, ill_rule=False, kinds=None):
     """One control step through the kernel and the plain step. Every env
     outside the mask ``referee`` (K,) must agree within the tolerances. The
     envs in it are ill-conditioned (see the contact states in
@@ -386,12 +402,17 @@ def compare_step(kern, task, label, sim, cmd, referee, ill_rule=False):
     refereed envs where the float32 plain step itself stays within the
     tolerances of the float64 step (the in-hand scenes: a light object on
     16 capsules leaves them in 7-14 % of the envs, in the plain step too).
-    Returns the largest error and the plain step's outputs."""
+    ``kinds``: named (K,) masks of refereed envs, each with its own counts
+    of envs beyond the tolerances of the plain and float64 steps printed.
+    Returns the largest error, the largest over the envs held in full, and
+    the plain step's outputs."""
     import torch
 
     k = sim.qpos.shape[0]
     got = _outputs(*kern(sim, cmd, 5))
     ref = _outputs(*kern.plain(sim, cmd, 5))
+    # the fields this scene has (no free-body fields in a robot-only scene)
+    fields = {n: tol for n, tol in (TOL | AUX_TOL).items() if got[n][0].numel()}
     n_ref = int(referee.sum())
     if n_ref:
         prev = torch.get_default_dtype()
@@ -404,39 +425,49 @@ def compare_step(kern, task, label, sim, cmd, referee, ill_rule=False):
     shared = referee
     if n_ref and ill_rule:
         ill = torch.zeros_like(referee)
-        for name, tol in (TOL | AUX_TOL).items():
+        for name, tol in fields.items():
             ill |= _env_err(ref[name], f64[name]) > tol
         shared = referee & ~ill
         print(f"[check] {task} {label}: the float32 plain step leaves the float64 step's "
               f"tolerances in {int((ill & referee).sum())} of {n_ref} refereed envs")
-    max_err, worst = 0.0, []
-    for name, tol in (TOL | AUX_TOL).items():
+    max_err, held_err, worst = 0.0, 0.0, []
+    for name, tol in fields.items():
         if not torch.isfinite(got[name]).all():
             fail(f"{task} {label}: kernel output {name} is not finite")
         e = _env_err(got[name], ref[name])
         beyond = e > tol
         err, n_strict = float(e.max()), int((beyond & ~referee).sum())
         max_err = max(max_err, err)
+        e_held = float(e[~referee].max()) if n_ref < k else 0.0
+        held_err = max(held_err, e_held)
         line = (f"[check] {task} {label} {name}: max |kernel - plain| = {err:.3e} (tol "
                 f"{tol:g}, max |plain| {float(ref[name].abs().max()):.3e}), median env "
                 f"{float(e.median()):.3e}, envs beyond tol {n_strict} of "
-                f"{k - n_ref} held in full")
+                f"{k - n_ref} held in full (max {e_held:.3e})")
         if n_strict:
             worst.append(f"{name}: {n_strict} envs held in full beyond tol {tol:g}")
         if n_ref:
             n_out = int((beyond & shared).sum())
-            k64 = int(((_env_err(got[name], f64[name]) > tol) & referee).sum())
-            p64 = int(((_env_err(ref[name], f64[name]) > tol) & referee).sum())
-            line += (f", {n_out} of {int(shared.sum())} refereed"
+            k64_all = _env_err(got[name], f64[name]) > tol
+            p64_all = _env_err(ref[name], f64[name]) > tol
+            k64, p64 = int((k64_all & referee).sum()), int((p64_all & referee).sum())
+            line += (f", {n_out} of {int(shared.sum())} refereed (max "
+                     f"{float(e[referee].max()):.3e})"
                      f"{' (plain within the float64 tolerances)' if ill_rule else ''}; beyond "
-                     f"tol of the float64 step: kernel {k64}, plain {p64}")
+                     f"tol of the float64 step: kernel {k64}, plain {p64} refereed; kernel "
+                     f"{int((k64_all & ~referee).sum())}, plain "
+                     f"{int((p64_all & ~referee).sum())} held in full")
+            for kind, m in (kinds or {}).items():
+                line += (f"; {kind}: {int((beyond & m).sum())} of {int(m.sum())} beyond tol, "
+                         f"of the float64 step kernel {int((k64_all & m).sum())}, plain "
+                         f"{int((p64_all & m).sum())}")
             if n_out > CONTACT_SHARE * int(shared.sum()) or k64 > 1.5 * p64 + 8:
                 worst.append(f"{name}: {n_out} refereed envs beyond tol of the plain step, "
                              f"{k64} (plain: {p64}) beyond tol of the float64 step")
         print(line)
     if worst:
         fail(f"{task} {label}: kernel disagrees with the plain step: " + "; ".join(worst))
-    return max_err, ref
+    return max_err, held_err, ref
 
 
 def touched_in_step(kern, sim, cmd, n):
@@ -452,8 +483,63 @@ def touched_in_step(kern, sim, cmd, n):
     return hit
 
 
+def forest_settle(env, kern, cst, ccmd, task, limit_gate):
+    """A robot-only scene's settle: 10 control steps of the contact states
+    through the kernel alone, under their own command. Prints, for each
+    articulated object's dof, the share of envs in its open-limit band
+    (within 0.01 of the upper limit, or past it: the limit spring acts);
+    with ``limit_gate`` that share must be nonzero. Returns the first dof's
+    share."""
+    import torch
+
+    sim = cst.sim
+    for _ in range(10):
+        sim, _aux = kern(sim, ccmd, 5)
+    if not (torch.isfinite(sim.qpos).all() and torch.isfinite(sim.qvel).all()):
+        fail(f"{task} settle from the contact states produced non-finite state")
+    shares = []
+    for name, dofs in env.model.art_dof_index.items():
+        for d in dofs:
+            hi = float(env.model.robot_qlim[d, 1])
+            share = float((sim.qpos[:, d] >= hi - 0.01).float().mean())
+            shares.append(share)
+            print(f"[check] {task} settle: {env.model.robot.joint_names[d]} in its open-limit "
+                  f"band (>= {hi:g} - 0.01) in {100 * share:.1f} % of the envs after 10 control "
+                  f"steps from the contact states; range [{float(sim.qpos[:, d].min()):.4f}, "
+                  f"{float(sim.qpos[:, d].max()):.4f}]")
+    if limit_gate and not shares[0] > 0:
+        fail(f"{task}: no env's object reached its joint-limit band")
+    return shares[0]
+
+
+def art_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the articulated contact states (fingers
+    pressing the lid, the handle or the drawer, where the env index modulo
+    4 is not 3): the box_box_corners points with a robot link on each side
+    (the robot's tree and the object's). Prints the share of envs with
+    such points loaded."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    cross = torch.as_tensor((plan.pra >= 0) & (plan.prb >= 0)
+                            & (plan.pfn == _FNS.index("box_box_corners")), device=dev)
+    press = torch.arange(loaded.shape[0], device=dev) % 4 != 3
+    held = loaded[:, cross].any(1)
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: cross-tree box_box_corners "
+          f"points loaded in {100 * float(held.float().mean()):.1f} % of the envs "
+          f"({100 * float(held[press].float().mean()):.1f} % of the pressing envs; "
+          f"{int(loaded[:, cross].sum())} points)")
+    return {
+        "cross-tree box_box_corners loaded (pressing envs)": held[press],
+        "friction lam_t nonzero (cross-tree, pressing envs)": lam_t[press][:, cross].any(1),
+    }
+
+
 def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
-                 contact_cmd="perturbed", inhand=False):
+                 contact_cmd="perturbed", inhand=False, limit_gate=False):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
     starts apart may end from its starting height after 10 control steps.
@@ -468,7 +554,12 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     are held in full, the rest refereed; the referee's share counts only
     envs where the float32 plain step stays within the float64 step's
     tolerances (``compare_step``); the settle check asks that 80 % of the
-    objects stay on the hand (over its drop height) instead of a band."""
+    objects stay on the hand (over its drop height) instead of a band.
+    Robot-only scenes (F=0: the articulated tasks) referee the reset envs
+    where a point carries force within the step, as the in-hand scenes do
+    (without the share rule's restriction), and settle from their contact
+    states instead (``forest_settle``; ``limit_gate``: an object must
+    reach its open-limit band)."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
@@ -479,7 +570,8 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     kern, plan = env.kernel, env.kernel.plan
     st = env._state
     if "model_id" in st.extras:  # per-env objects: every library object present
-        seen = torch.bincount(st.extras["model_id"].long(), minlength=len(env._lib))
+        n_models = len(env._lib) if hasattr(env, "_lib") else len(env.MODELS)
+        seen = torch.bincount(st.extras["model_id"].long(), minlength=n_models)
         print(f"[check] {task} reset: envs per library object {seen.tolist()}")
         if not bool((seen > 0).all()):
             fail(f"{task}: reset states miss a library object: {seen.tolist()}")
@@ -490,8 +582,8 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
         return cmd.replace(target_qpos=cmd.target_qpos + 0.05 * torch.randn(
             cmd.target_qpos.shape, generator=gen, device="cuda"))
 
-    def compare(label, sim, cmd, referee):
-        return compare_step(kern, task, label, sim, cmd, referee, ill_rule)
+    def compare(label, sim, cmd, referee, kinds=None):
+        return compare_step(kern, task, label, sim, cmd, referee, ill_rule, kinds)
 
     # a) reset states: cubes rest on the table, the hand is far from them;
     # every env must agree. StackCube's placement rule (the JAX package's:
@@ -509,11 +601,30 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     print(f"[check] {task} reset: {int(overlap.sum())} of {k} envs start with "
           "free bodies interpenetrating")
     cmd = perturbed(st.cmd)
+    kinds = None
     if inhand:
         overlap = touched_in_step(kern, st.sim, cmd, 5)
         print(f"[check] {task} reset: the object touches the hand within the step in "
               f"{int(overlap.sum())} of {k} envs (refereed)")
-    err_reset, _ = compare("reset", st.sim, cmd, referee=overlap)
+    elif env.model.n_free == 0:
+        # robot-only scenes: the JAX reset's own draws start the Panda's
+        # hand or fingers inside FoldSuitcase's open lid in about 37 % of
+        # the envs, every container model alike (ROADMAP Queue C), and the
+        # perturbed targets bring them into the lid within the step in
+        # about 10 % more. Both are stiff contacts: the float32 plain step
+        # itself leaves the float64 step's tolerances in a few envs of
+        # each kind, and so does the kernel (the compare lines print
+        # both). Envs in which a point carries force within the step take
+        # the contact states' rule, as the in-hand scenes' do; every other
+        # env is held in full
+        cross = torch.as_tensor((plan.pra >= 0) & (plan.prb >= 0), device="cuda")
+        inside = (depth0[:, cross] > 0).any(1)
+        overlap = touched_in_step(kern, st.sim, cmd, 5) | inside
+        print(f"[check] {task} reset: {int(overlap.sum())} of {k} envs refereed: "
+              f"{int(inside.sum())} start with a robot link inside the object, "
+              f"{int((overlap & ~inside).sum())} more carry force within the step")
+        kinds = {"start inside": inside, "touch within the step": overlap & ~inside}
+    err_reset, held_reset, _ = compare("reset", st.sim, cmd, referee=overlap, kinds=kinds)
     # b) states in contact: every pair function carries force. Stiff
     # contacts amplify float32 rounding, and a force law with thresholds
     # (margin, load gate, friction cone) flips in a few envs, so the plain
@@ -523,7 +634,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     # than the plain step is (1.5 x its count of envs beyond tol, plus 8)
     cst = env.contact_state(st, gen)
     ccmd = perturbed(cst.cmd) if contact_cmd == "perturbed" else cst.cmd
-    err_contact, cref = compare("contact", cst.sim, ccmd,
+    err_contact, _, cref = compare("contact", cst.sim, ccmd,
                                 referee=torch.ones(k, dtype=torch.bool, device="cuda"))
     loaded = cref["f_pt"].abs().sum(-1) > 0  # (K, P)
     depth = engine.compute_contacts(
@@ -551,6 +662,9 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
             fail(f"{task}: only {100 * held:.1f} % of the objects stayed on the hand")
         settle_band = None
     dz = (sim.free_pose[..., 2] - st.sim.free_pose[..., 2])[~overlap]
+    if env.model.n_free == 0:  # robot-only: no free body to settle
+        settle_band = None
+        limit_share = forest_settle(env, kern, cst, ccmd, task, limit_gate)
     if settle_band is not None:
         if not bool(((dz > settle_band[0]) & (dz < settle_band[1])).all()):
             fail(f"{task}: free bodies did not settle: height change in [{float(dz.min()):.4f}, "
@@ -579,9 +693,12 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
               f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> {bytes_ms:.5f} ms, {ops} ops "
               f"-> {ops_ms:.5f} ms; points {counts})", flush=True)
     k_ms, p_ms, bytes_ms, ops_ms = timing["contact"]
-    return dict(max_err=max(err_reset, err_contact), ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations") | occ
+    out = dict(max_err=max(err_reset, err_contact), max_err_held=held_reset, ms=k_ms,
+               plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations") | occ
+    if env.model.n_free == 0:
+        out["limit_band_share"] = limit_share
+    return out
 
 
 def ragged_phase(mtt):
@@ -601,7 +718,7 @@ def ragged_phase(mtt):
         cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05 * torch.randn(
             st.cmd.target_qpos.shape, generator=gen, device="cuda"))
         launches = env.kernel.launches
-        err, _ = compare_step(env.kernel, f"PickCube-v1 K={k}", "reset", st.sim, cmd,
+        err, _, _ = compare_step(env.kernel, f"PickCube-v1 K={k}", "reset", st.sim, cmd,
                               referee=torch.zeros(k, dtype=torch.bool, device="cuda"))
         if env.kernel.launches != launches + 1:
             fail(f"PickCube-v1 K={k}: the check did not launch the kernel once")
@@ -657,10 +774,11 @@ def seam_phase(mtt, ILQR, ILQRConfig):
     return worst
 
 
-def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temperature,
-               obs_dim):
-    """Phases 4 and 5: MPPI on one task, one warm-up and TIMED_SOLVES timed
-    solves, K2's launches counted and its device time read around them.
+def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, **overrides):
+    """Phases 4 and 5: MPPI on one task at its env class's ``MPPI_CONFIG``
+    (``overrides``: MPPIConfig keyword arguments that replace it), one
+    warm-up and TIMED_SOLVES timed solves, K2's launches counted and its
+    device time read around them.
     Returns the launches, the kernel's mean device time per launch in the
     timed solves, and the mean bound of a launch, counted by
     ``megakernel.work`` on the inputs of every PATH_BOUND_EVERY-th launch
@@ -669,8 +787,9 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, num_samples, sigma, temp
 
     env1 = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense")
     env1.reset(seed=0)
-    planner = MPPI(env1, MPPIConfig(horizon=H, num_samples=num_samples, sigma=sigma,
-                                    temperature=temperature))
+    cfg = dict(type(env1).MPPI_CONFIG, **overrides)
+    H, num_samples = cfg["horizon"], cfg["num_samples"]
+    planner = MPPI(env1, MPPIConfig(**cfg))
     ps = planner.init(seed=0)
     kern = env1.kernel
     step, path_work, calls = kern.step, [], [0]
@@ -939,31 +1058,43 @@ def main():
                           inhand_branches, contact_cmd="own", inhand=True)
     inhand |= stack_phase(megakernel)
     torch.cuda.empty_cache()
+    # robot-only forests (F=0): an articulated object's tree beside the
+    # robot's, points with a robot link on each side
+    fold = kernel_phase(mtt, engine, megakernel, "FoldSuitcaseModels-v1", art_branches,
+                        contact_cmd="own", limit_gate=True)
+    faucet = kernel_phase(mtt, engine, megakernel, "TurnFaucet-v1", art_branches,
+                          contact_cmd="own")
+    cabinet = kernel_phase(mtt, engine, megakernel, "OpenCabinetDrawer-v1", art_branches,
+                           contact_cmd="own")
+    torch.cuda.empty_cache()
 
     # ---- 3. the differentiable step on the card ----
     seam_err = seam_phase(mtt, planners.ILQR, planners.ILQRConfig)
     print(f"[seam] largest relative difference {seam_err:.3e}", flush=True)
 
     # ---- 4. the PickCube main path: MPPI ----
-    pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1",
-                       K_MPPI, 0.6, 0.3, 42)
+    pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42)
 
     # ---- 5. the PickSingleYCB path: MPPI at config #5 ----
     torch.cuda.empty_cache()
     ycb |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickSingleYCB-v1",
-                      K_YCB, SIGMA_YCB, TEMP_YCB, 46)
+                      46, num_samples=K_YCB, sigma=SIGMA_YCB, temperature=TEMP_YCB)
 
     # ---- 5b. the PlugCharger and RollBall paths: MPPI at the bench shape ----
     torch.cuda.empty_cache()
-    plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1",
-                       K_MPPI, 0.6, 0.3, 39)
-    roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1",
-                       K_MPPI, 0.6, 0.3, 44)
+    plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1", 39)
+    roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1", 44)
 
     # ---- 5c. the in-hand path: RotateSingleObjectInHandLevel2-v1 MPPI ----
     torch.cuda.empty_cache()
     inhand |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                         "RotateSingleObjectInHandLevel2-v1", K_MPPI, 0.6, 0.3, 40)
+                         "RotateSingleObjectInHandLevel2-v1", 40)
+
+    # ---- 5d. the articulated paths: MPPI at the JAX package's configs ----
+    for numbers, task, obs_dim in ((fold, "FoldSuitcase-v1", 34), (faucet, "TurnFaucet-v1", 32),
+                                   (cabinet, "OpenCabinetDrawer-v1", 46)):
+        torch.cuda.empty_cache()
+        numbers |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, task, obs_dim)
 
     # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
@@ -983,7 +1114,8 @@ def main():
                                             "stack_ms", "stack_plain_ms", "stack_bound_ms",
                                             "slice_bytes", "envs_per_sm",
                                             "stack_slice_bytes", "stack_envs_per_sm",
-                                            "ragged_max_abs_err")
+                                            "ragged_max_abs_err", "limit_band_share",
+                                            "max_err_held")
                     if k in numbers}
 
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
@@ -999,6 +1131,11 @@ def main():
         entry("megakernel_step", k2_src, k2_tpu, inhand)
         | {"inputs": f"RotateSingleObjectInHandLevel2-v1, K={K_CHECK}; stack_*: the hull stack "
                      f"(sphere_hull, hull_hull), K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, fold)
+        | {"inputs": f"FoldSuitcaseModels-v1, K={K_CHECK}; path_*: FoldSuitcase-v1 MPPI"},
+        entry("megakernel_step", k2_src, k2_tpu, faucet) | {"inputs": f"TurnFaucet-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, cabinet)
+        | {"inputs": f"OpenCabinetDrawer-v1, K={K_CHECK}"},
         entry("solve_psd", "maniskill_tpu_torch/csrc/solve_psd.cu",
               "maniskill_tpu/physics/pallas_kernels.py:27", k1, k1["library_ms"]),
     ]}))

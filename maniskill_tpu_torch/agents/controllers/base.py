@@ -1,11 +1,14 @@
 """Joint-space PD controllers on batched tensors.
 
 Port of ``maniskill_tpu/agents/controllers/base.py`` for the position
-modes: ``PDJointPosControllerConfig`` and ``JointController`` in position
-mode, with delta or absolute targets, raw (``normalize_action=False``) or
-scaled actions, and the mimic (one action, all joints) gripper.
-Velocity, pos-vel, passive, base-velocity, torque and end-effector
-controllers are not ported yet.
+modes and the mobile base: ``PDJointPosControllerConfig``
+and ``JointController`` in position mode, with delta or absolute targets,
+raw (``normalize_action=False``) or scaled actions, and the mimic (one
+action, all joints) gripper; ``PDBaseForwardVelControllerConfig`` (the
+``base_vel`` mode, ``:160-175``, ``:268``: two actions, forward and turning
+velocity, onto the root x, y and yaw joints through damping-only velocity
+drives). Velocity, pos-vel, passive, torque and end-effector controllers
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -50,17 +53,49 @@ class PDJointPosControllerConfig(ControllerConfig):
     normalize_action: bool = True  # action in [-1, 1] scaled to [lower, upper]
 
 
-class JointController:
-    """Per-joint PD position controller with device-resident constants."""
+@dataclass
+class PDBaseForwardVelControllerConfig(ControllerConfig):
+    """Ego-centric mobile-base velocity control: 2 actions (forward and
+    turning velocity) onto the root x, y and yaw joints, in that order."""
 
-    def __init__(self, config: PDJointPosControllerConfig, qlim: np.ndarray,
-                 device):
-        if not isinstance(config, PDJointPosControllerConfig):
-            raise NotImplementedError(f"controller {type(config).__name__}")
+    lower: float = -0.5
+    upper: float = 0.5
+    damping: Union[float, Sequence[float]] = 1e3
+    force_limit: Union[float, Sequence[float]] = 1e10
+    normalize_action: bool = True
+
+
+class JointController:
+    """Per-joint PD controller with device-resident constants: position
+    targets (``PDJointPosControllerConfig``) or the mobile base's velocity
+    targets (``PDBaseForwardVelControllerConfig``)."""
+
+    def __init__(self, config: ControllerConfig, qlim: np.ndarray, device):
         idx = np.asarray(config.joint_indices, dtype=np.int64)
         self.config = config
         self.joint_indices = idx
         self.nj = len(idx)
+        self._idx = torch.as_tensor(idx, device=device)
+        self.qlim = qlim[idx].astype(np.float32)
+        self.use_delta = self.mimic = False
+        if isinstance(config, PDBaseForwardVelControllerConfig):
+            if self.nj != 3:
+                raise ValueError("the base controller drives (root x, root y, root yaw)")
+            self._mode = "base_vel"
+            self.action_dim = 2
+            self.raw_low = np.full(2, config.lower, np.float32)
+            self.raw_high = np.full(2, config.upper, np.float32)
+            self.normalize_action = config.normalize_action
+            self.kp = np.zeros(self.nj, np.float32)
+            self.kd = np.broadcast_to(np.asarray(config.damping, np.float32), (self.nj,)).copy()
+            self.force_limit = np.broadcast_to(
+                np.asarray(config.force_limit, np.float32), (self.nj,)).copy()
+            self._low = torch.as_tensor(self.raw_low, device=device)
+            self._high = torch.as_tensor(self.raw_high, device=device)
+            return
+        if not isinstance(config, PDJointPosControllerConfig):
+            raise NotImplementedError(f"controller {type(config).__name__}")
+        self._mode = "pos"
         lo = qlim[idx, 0].copy()
         hi = qlim[idx, 1].copy()
         if config.lower is not None:
@@ -78,13 +113,11 @@ class JointController:
             self.action_dim = self.nj
         self.raw_low = lo.astype(np.float32)
         self.raw_high = hi.astype(np.float32)
-        self.qlim = qlim[idx].astype(np.float32)
         self.kp = np.broadcast_to(np.asarray(config.stiffness, np.float32), (self.nj,)).copy()
         self.kd = np.broadcast_to(np.asarray(config.damping, np.float32), (self.nj,)).copy()
         self.force_limit = np.broadcast_to(
             np.asarray(config.force_limit, np.float32), (self.nj,)).copy()
         n = self.action_dim
-        self._idx = torch.as_tensor(idx, device=device)
         self._low = torch.as_tensor(self.raw_low[:n], device=device)
         self._high = torch.as_tensor(self.raw_high[:n], device=device)
         self._qlo = torch.as_tensor(self.qlim[:, 0], device=device)
@@ -95,6 +128,13 @@ class JointController:
         """New drive targets from a (K, action_dim) action in [-1, 1]."""
         a = (clip_and_scale_action(action, self._low, self._high)
              if self.normalize_action else action)
+        if self._mode == "base_vel":
+            # ego-centric (forward, turn) -> world (vx, vy, yaw rate); the
+            # position targets hold the current pose (kp is 0)
+            ori = qpos[..., self._idx[2]]
+            tv = torch.stack([a[..., 0] * torch.cos(ori), a[..., 0] * torch.sin(ori),
+                              a[..., 1]], dim=-1)
+            return ControllerState(target_qpos=qpos[..., self._idx], target_qvel=tv)
         if self.mimic:
             a = a.expand(a.shape[:-1] + (self.nj,))
         q = qpos[..., self._idx]

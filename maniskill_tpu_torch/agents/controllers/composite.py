@@ -43,8 +43,13 @@ class CompositeController:
 
     def reset(self, qpos: torch.Tensor) -> DriveCmd:
         """Drive command holding the current (K, nq) qpos, with the
-        controller-config gains materialized per env."""
-        kp, kd, fl = (g.expand_as(qpos).clone() for g in self._gains)
+        controller-config gains materialized per env. A scene's qpos may
+        extend past the robot's dofs (articulated objects follow the robot
+        in the forest): those dofs are undriven (kp = kd = 0)."""
+        extra = qpos.shape[-1] - self.nq
+        pads = (0.0, 0.0, 1e10)
+        kp, kd, fl = (torch.cat([g, g.new_full((extra,), v)]).expand_as(qpos).clone()
+                      for g, v in zip(self._gains, pads))
         return DriveCmd(target_qpos=qpos.clone(), target_qvel=torch.zeros_like(qpos),
                         qf=torch.zeros_like(qpos), kp=kp, kd=kd, force_limit=fl)
 

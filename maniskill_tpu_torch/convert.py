@@ -6,7 +6,11 @@ numpy arrays keyed by field name (nested for ``EnvState``: ``sim``, ``cmd``,
 this module imports no JAX. The per-env convex-hull tables (``hull_verts``,
 ``hull_faces``, one slot per hull geom: (K, n_hull, ...)) come across with
 the rest of ``SimState``, so each env keeps its own objects; so do kinematic poses (RollBall's goal region) and task
-extras (RollBall's ``reached`` latch). Fields the port does not model (the per-env PRNG key) are
+extras (RollBall's ``reached`` latch; TurnFaucet's ``init_angle`` and
+``target_angle``; the ``model_id``, ``target_qpos`` and ``target_link`` of
+the per-env container and cabinet models). A scene with articulated
+objects carries its forest's dofs in ``qpos``/``qvel`` after the robot's,
+and a robot-only scene's free-body fields are (K, 0, ...). Fields the port does not model (the per-env PRNG key) are
 ignored on the way in and absent on the way out. A JAX ``CEMState`` arrives as its mean and sigma; its PRNG key is
 not carried (the port's planners draw with a ``torch.Generator``, and tests
 inject the JAX draws instead).

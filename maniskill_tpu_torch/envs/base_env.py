@@ -111,6 +111,10 @@ class BaseEnv:
     DEFAULT_ROBOT = "panda"
     SIM_FREQ = 100
     CONTROL_FREQ = 20
+    # the task's MPPI settings (``MPPIConfig`` keyword arguments), as
+    # ``chip_smoke.py`` and ``mppi_ab`` run it: the bench shape unless the
+    # task has a planner config of its own
+    MPPI_CONFIG = dict(horizon=50, num_samples=4096, sigma=0.6, temperature=0.3)
     max_episode_steps: Optional[int] = None
 
     def __init__(self, num_envs: int = 1, obs_mode: str = "state",

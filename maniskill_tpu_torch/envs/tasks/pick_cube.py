@@ -15,8 +15,8 @@ import torch
 
 from ..._consts import const
 from ...kinematics import chain
-from ...math.rotations import quat_conjugate, quat_from_axis_angle, quat_mul
-from ...physics.engine import make_step_fn
+from ...math.rotations import quat_apply, quat_conjugate, quat_from_axis_angle, quat_mul
+from ...physics.engine import all_geom_poses, make_step_fn, robot_fk
 from ...physics.model import SceneSpecBuilder, box_geom
 from ..base_env import BaseEnv, EnvState, TaskContext
 from ..registration import register_env
@@ -33,12 +33,8 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
     is folded by an odd number of quarter turns (``_closing_half``).
     ``tool``: the TCP's orientation before the yaw (default: its +z turned
     to world -z, pointing down). The gripper joints are left as they are."""
-    model, spec, dev = env.model, env.model.robot, env.device
+    dev = env.device
     K = qpos.shape[0]
-    base = const(model, "robot_base_pose", model.robot_base_pose, dev)
-    tcp = spec.frame_of(env.agent.ee_link_name)[0]
-    arm = np.arange(7)
-    qlim = torch.as_tensor(model.robot_qlim, device=dev)
     # the object's yaw (reset objects are yaw-only) folded into
     # [-pi/4, pi/4]: a quarter turn keeps the wrist in range
     yaw, turns = _yaw_fold(cube)
@@ -50,21 +46,49 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
         dz = -0.012 + 0.01 * torch.rand((K,), generator=gen, device=dev)
     p_goal = cube[:, :3] + torch.stack(
         [torch.zeros(K, device=dev), torch.zeros(K, device=dev), dz], dim=-1)
+    return pose_ik(env, qpos, p_goal, q_goal)
+
+
+def pose_ik(env, qpos: torch.Tensor, p_goal: torch.Tensor, q_goal: torch.Tensor,
+            joints=range(7), iters: int = 30) -> torch.Tensor:
+    """``qpos`` with the ``joints`` moved (damped least squares, steps of
+    at most 0.2 rad, within the joint limits) so that the TCP reaches the
+    world pose ``(p_goal (K, 3), q_goal (K, 4))``; 30 steps bring a
+    reachable goal within ~1e-6 m."""
+    model, spec, dev = env.model, env.model.robot, env.device
+    base = const(model, "robot_base_pose", model.robot_base_pose, dev)
+    tcp = spec.frame_of(env.agent.ee_link_name)[0]
+    arm = np.asarray(joints)
+    idx = torch.as_tensor(arm, device=dev)
+    qlim = torch.as_tensor(model.robot_qlim, device=dev)
     qpos = qpos.clone()
     eye = 1e-4 * torch.eye(6, device=dev)
-    for _ in range(30):  # converges to ~1e-6 m in about 20 steps
+    for _ in range(iters):
         body_pos, body_quat, axis_w = chain.fk(spec, base, qpos)
         p, q = chain.frame_pose(spec, base, body_pos, body_quat, env.agent.ee_link_name)
         q_err = quat_mul(q_goal, quat_conjugate(q))
         w_err = 2.0 * torch.sign(q_err[:, :1]) * q_err[:, 1:]
         err = torch.cat([w_err, p_goal - p], dim=-1)
         J = chain.point_jacobian(spec, body_pos, axis_w, p, tcp, arm,
-                                 model.ancestor_mask)  # (K, 6, 7)
+                                 model.ancestor_mask)  # (K, 6, n)
         dq = J.transpose(1, 2) @ torch.linalg.solve(
             J @ J.transpose(1, 2) + eye, err[..., None])
-        qpos[:, :7] = torch.clamp(qpos[:, :7] + dq[..., 0].clamp(-0.2, 0.2),
-                                  qlim[:7, 0], qlim[:7, 1])
+        qpos[:, idx] = torch.clamp(qpos[:, idx] + dq[..., 0].clamp(-0.2, 0.2),
+                                   qlim[idx, 0], qlim[idx, 1])
     return qpos
+
+
+def box_corners(model, qpos: torch.Tensor, geoms) -> torch.Tensor:
+    """(K, 8 len(geoms), 3) world corners of the box geoms ``geoms`` (robot
+    links, at their model sizes and offsets) at ``qpos``."""
+    sim = model.initial_state(qpos.shape[0], qpos.device).replace(qpos=qpos)
+    body_pos, body_quat, _ = robot_fk(model, qpos)
+    gp, gq = all_geom_poses(model, sim, body_pos, body_quat)
+    signs = torch.tensor([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                         dtype=qpos.dtype, device=qpos.device)
+    return torch.cat([gp[:, g, None] + quat_apply(gq[:, g, None].expand(-1, 8, 4),
+                                                  signs * sim.geom_size[:, g, None])
+                      for g in geoms], dim=1)
 
 
 def _yaw_fold(pose: torch.Tensor):

@@ -3,8 +3,10 @@
     python -m maniskill_tpu_torch.mppi_ab --parent DIR [--task PickCube-v1 ...]
         [--solves 5] [--rounds 1]
 
-Runs the MPPI phase of ``chip_smoke.py`` (H=50, K=4096, sigma 0.6,
-temperature 0.3: one warm-up solve, then ``--solves`` timed solves) on the
+Runs the MPPI phase of ``chip_smoke.py`` (each task at its env class's
+``MPPI_CONFIG``, read in this checkout: H=50, K=4096, sigma 0.6,
+temperature 0.3 unless the task has a planner config of its own; one
+warm-up solve, then ``--solves`` timed solves) on the
 checkout at ``DIR`` (its root) and on this one, each in a process of its
 own, in turns: parent, change, change, parent, ``--rounds`` times. Each
 process imports the ``maniskill_tpu_torch`` of its checkout and builds that
@@ -28,12 +30,12 @@ import sys
 import time
 from pathlib import Path
 
-H, K = 50, 4096
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _worker(root: Path, tasks: list, solves: int) -> None:
-    """One checkout's runs: a JSON line per task on stdout."""
+def _worker(root: Path, configs: dict, solves: int) -> None:
+    """One checkout's runs: a JSON line per task (``configs``: task ->
+    MPPIConfig keyword arguments) on stdout."""
     sys.path.insert(0, str(root))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -60,11 +62,11 @@ def _worker(root: Path, tasks: list, solves: int) -> None:
             return out
         return run
 
-    for task in tasks:
+    for task, cfg in configs.items():
         env = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense")
         env.reset(seed=0)
-        planner = planners.MPPI(env, planners.MPPIConfig(horizon=H, num_samples=K, sigma=0.6,
-                                                         temperature=0.3))
+        H, K = cfg["horizon"], cfg["num_samples"]
+        planner = planners.MPPI(env, planners.MPPIConfig(**cfg))
         ps = planner.init(seed=0)
         ps, _ = planner.solve(ps, env._state)
         torch.cuda.synchronize()
@@ -108,11 +110,18 @@ def main(argv=None):
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--configs", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    tasks = args.task or ["PickCube-v1"]
     if args.worker is not None:
-        _worker(args.worker.resolve(), tasks, args.solves)
+        _worker(args.worker.resolve(), json.loads(args.configs), args.solves)
         return
+    from .envs.registration import REGISTERED_ENVS
+
+    tasks = args.task or ["PickCube-v1"]
+    # this checkout's settings for both checkouts' runs (a prior as a list)
+    configs = json.dumps({t: {k: (v.tolist() if hasattr(v, "tolist") else v)
+                              for k, v in REGISTERED_ENVS[t]["cls"].MPPI_CONFIG.items()}
+                          for t in tasks})
     if args.parent is None:
         ap.error("--parent is required")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,7 +134,7 @@ def main(argv=None):
             # -P: the script's own directory (this package, with a `math`
             # subpackage) stays off sys.path; the worker puts its root there
             cmd = [sys.executable, "-P", __file__, "--worker", str(roots[name]),
-                   "--solves", str(args.solves)] + [a for t in tasks for a in ("--task", t)]
+                   "--solves", str(args.solves), "--configs", configs]
             proc = subprocess.run(cmd, capture_output=True, text=True, cwd=roots[name],
                                   env=dict(os.environ, PYTHONPATH=""))
             if proc.returncode != 0:

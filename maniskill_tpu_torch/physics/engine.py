@@ -4,9 +4,16 @@ Port of ``maniskill_tpu/physics/engine.py``: ``robot_fk``,
 ``joint_columns``, ``all_geom_poses``, ``compute_contacts``,
 ``_assignment_tables`` (``:291``), ``point_forces`` (``:304``),
 ``make_force_query`` (``:494``), ``pair_force_signs``, ``make_step_fn`` and
-its ``substep`` (``:537-1125``) and ``_trace_metadata`` (``:1127``). Not
-ported yet: actor-pair drives (``:919-1041``) and the legacy spring
-contact mode.
+its ``substep`` (``:537-1125``) and ``_trace_metadata`` (``:1127``). The
+robot may be a kinematic forest (the robot's tree and articulated objects'
+trees, ``model.add_articulation``): FK, the prefix and suffix sums and the
+ancestor masks start every root from the base pose, gravity is per body
+(``gravity_mask``), joint limits, damping and friction act on every dof,
+passive ones included, and a point with a robot link on each side takes
+both sides' columns (``sm``). Robot-only scenes (no free body) have no
+free-body blocks. Not ported yet: actor-pair drives (``:919-1041``), the
+legacy spring contact mode, and scenes without a robot or without contact
+points.
 
 Clamps and maxima on the differentiated path go through ``math.clamps``,
 which gives JAX's derivative at a tie (0.5/0.5), so the step's tangents

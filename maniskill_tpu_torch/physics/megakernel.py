@@ -17,6 +17,12 @@ The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
 version is the PyTorch engine step (``engine.make_step_fn``), which the
 wrapper takes for CPU tensors only.
 
+The row plan takes a kinematic forest (the robot's tree and articulated
+objects' trees, ``SceneSpecBuilder.add_articulation``) as one robot: its
+dofs, bodies and per-body tables (gravity flags, limits, friction) are the
+forest's, and a point with a robot link on each side takes both sides'
+columns. A robot-only scene (F=0) has zero-width free-body slices.
+
 Hull pairs (``plane_hull``, ``sphere_hull``, ``box_hull``,
 ``capsule_hull``, ``hull_hull``) read each env's contact cloud and face
 planes from rows of the input plane after the drive gains, as the JAX plan
@@ -81,8 +87,10 @@ def _enum(name: str, source=SOURCE):
 
 
 def supports(model: SceneModel) -> bool:
-    """Whether the CUDA kernel covers this model: velocity contact mode, one
-    robot tree, pair functions among those the kernel implements, hull
+    """Whether the CUDA kernel covers this model: velocity contact mode, a
+    robot (its tree, or a forest of its tree and articulated objects'
+    trees, each root placed from the shared base pose; no free body is
+    needed), pair functions among those the kernel implements, hull
     tables of the kernel's padded sizes, sizes within its compile-time
     caps, and a block's shared-memory slices within the card's 227 KB. (The port's ``SceneModel`` has no pair
     drives yet, so they need no test here.)

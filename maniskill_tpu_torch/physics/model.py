@@ -7,11 +7,19 @@ convex hulls; pairs resolved as in ``_build_pair_tables``, ``:336-373``):
 ``SimParams``, ``SimState`` (with the per-env hull tables, ``:164-169``),
 ``DriveCmd``, ``SceneModel`` (``hull_verts0``, ``hull_faces0``, ``n_hull``,
 ``geom_hull_slot``, ``:249-266``) and ``SceneSpecBuilder`` with
-``box_geom``/``sphere_geom``/``capsule_geom``/``plane_geom`` (``:897-918``)
-and ``add_free_hull`` (``:583-607``). As in the JAX builder, two geoms of
-one free body form a pair too (PlugCharger's two prongs: a
-``capsule_capsule`` pair whose Jacobian columns cancel). Not ported yet:
-articulated objects merged into a kinematic forest, and actor-pair drives.
+``box_geom``/``sphere_geom``/``capsule_geom``/``plane_geom`` (``:897-918``),
+``add_free_hull`` (``:583-607``), ``exclude_pair`` (``:675``) and
+articulated objects (``add_articulation``, ``:521``): ``build`` merges the
+robot's tree and every object's tree into one kinematic forest
+(``:713-777``, ``kinematics/articulation.merge_forest``), the object's
+carcass a static body ``"<name>:base"`` at its pose, its link geoms
+ROBOT_LINK geoms on the forest's bodies, its dofs passive (no drive), with a
+gravity flag per body (``gravity_mask``), ``tree_id`` and
+``art_dof_index``. Two robot-link geoms pair only across trees
+(``:781-822``): the robot's fingers against a lid, never the robot against
+itself. As in the JAX builder, two geoms of one free body form a pair too
+(PlugCharger's two prongs: a ``capsule_capsule`` pair whose Jacobian
+columns cancel). Not ported yet: actor-pair drives.
 
 ``SceneModel`` holds numpy constants (device-free). ``SimState`` and
 ``DriveCmd`` are dataclasses of tensors with the batch dimension K leading.
@@ -21,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from enum import IntEnum
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -170,6 +178,9 @@ class SceneModel:
         drive_force_limit: np.ndarray,
         init_qpos: np.ndarray,
         robot_gravity: bool = False,
+        gravity_mask: Optional[np.ndarray] = None,  # (nb,)
+        tree_id: Optional[np.ndarray] = None,  # (nb,)
+        art_dof_index: Optional[Dict[str, np.ndarray]] = None,
         hull_verts: Optional[np.ndarray] = None,  # (n_hull, HULL_P, 3)
         hull_faces: Optional[np.ndarray] = None,  # (n_hull, HULL_F, 4)
     ):
@@ -197,8 +208,14 @@ class SceneModel:
         self.init_qpos = init_qpos.astype(np.float32)
         self.robot_gravity = robot_gravity
         nb = robot.nb if robot is not None else 0
-        # robot links feel gravity only with balance_passive_force off
-        self.gravity_mask = np.full(nb, 1.0 if robot_gravity else 0.0, np.float32)
+        # a gravity scale per body: the robot's links feel gravity only with
+        # balance_passive_force off, an articulated object's links always
+        self.gravity_mask = (gravity_mask.astype(np.float32) if gravity_mask is not None
+                             else np.full(nb, 1.0 if robot_gravity else 0.0, np.float32))
+        # the forest's tree of each body (0: the robot), and each articulated
+        # object's dofs
+        self.tree_id = tree_id if tree_id is not None else np.zeros(nb, np.int32)
+        self.art_dof_index = art_dof_index or {}
         self.nq = nb
         self.n_free = len(free_names)
         self.n_kin = len(kin_names)
@@ -325,7 +342,11 @@ class SceneSpecBuilder:
         self.drive_kd = None
         self.drive_force_limit = None
         self.init_qpos = None
+        self._excluded_pairs: set = set()
         self._excluded_groups: list = []
+        # articulated objects: (name, spec, pose, base_geoms, link_geoms,
+        # init_qpos)
+        self._articulations: list = []
         # per-env convex hull tables (one slot per HULL geom)
         self.hull_verts: List[np.ndarray] = []
         self.hull_faces: List[np.ndarray] = []
@@ -373,6 +394,16 @@ class SceneSpecBuilder:
         self.drive_kp = np.zeros(spec.nb, dtype=np.float32)
         self.drive_kd = np.zeros(spec.nb, dtype=np.float32)
         self.drive_force_limit = np.full(spec.nb, 1e10, dtype=np.float32)
+
+    def add_articulation(self, builder, pose: np.ndarray) -> str:
+        """Add an articulated OBJECT built with
+        ``kinematics.articulation.ArticulationBuilder``. ``build`` merges its
+        tree into the scene's forest after the robot's; its dofs are passive
+        (no drive gains) and its links feel gravity. Returns its name."""
+        spec, base_geoms, link_geoms, init_q = builder.build()
+        self._articulations.append((builder.name, spec, np.asarray(pose, np.float32),
+                                    base_geoms, link_geoms, init_q))
+        return builder.name
 
     def set_drive_properties(self, kp, kd, force_limit):
         nb = self.robot.nb
@@ -425,6 +456,9 @@ class SceneSpecBuilder:
         self._add_geoms(BodyKind.STATIC, idx, name, geoms)
         return idx
 
+    def exclude_pair(self, name_a: str, name_b: str):
+        self._excluded_pairs.add(frozenset((name_a, name_b)))
+
     def exclude_groups(self, patterns_a, patterns_b):
         """Exclude pairs where one geom name matches a pattern in
         ``patterns_a`` (fnmatch) and the other one in ``patterns_b``."""
@@ -442,26 +476,99 @@ class SceneSpecBuilder:
                 return True
         return False
 
+    def _merge_articulations(self, geoms, collision_enabled):
+        """The robot's tree and every articulated object's, merged into one
+        forest (JAX ``build``, ``:713-777``). Appends the objects' carcass
+        and link geoms; returns the forest's model arrays."""
+        from ..kinematics.articulation import merge_forest
+
+        robot = self.robot
+        trees, grav = [], []
+        init_parts, kp_parts, kd_parts, fl_parts = [], [], [], []
+        if robot is not None:
+            trees.append((robot, self.robot_base_pose))
+            grav += [1.0 if self.robot_gravity else 0.0] * robot.nb
+            base_pose = self.robot_base_pose
+            init_parts.append(self.init_qpos)
+            kp_parts.append(self.drive_kp)
+            kd_parts.append(self.drive_kd)
+            fl_parts.append(self.drive_force_limit)
+        else:
+            base_pose = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
+        art_dof_index = {}
+
+        def geom(kind, body, g, name):
+            geoms.append(GeomSpec(
+                kind=kind, body=body, gtype=GeomType(g["type"]),
+                size=np.asarray(g["size"], np.float32),
+                offset_p=np.asarray(g.get("offset_p", np.zeros(3)), np.float32),
+                offset_q=np.asarray(g.get("offset_q", [1, 0, 0, 0]), np.float32),
+                friction=g.get("friction", 0.3), name=name))
+            collision_enabled.append(g.get("collision", True))
+
+        for (name, spec, pose, base_geoms, link_geoms, init_q) in self._articulations:
+            off = sum(t[0].nb for t in trees)
+            trees.append((spec, pose))
+            grav += [1.0] * spec.nb
+            art_dof_index[name] = np.arange(off, off + spec.nb)
+            init_parts.append(init_q)
+            kp_parts.append(np.zeros(spec.nb, np.float32))
+            kd_parts.append(np.zeros(spec.nb, np.float32))
+            fl_parts.append(np.full(spec.nb, 1e10, np.float32))
+            # the carcass: a static body at the object's pose
+            if base_geoms:
+                self.static_names.append(f"{name}:base")
+                self.static_pose.append(np.asarray(pose, np.float32))
+                for g in base_geoms:
+                    geom(BodyKind.STATIC, len(self.static_names) - 1, g, f"{name}:base")
+            for li, lg in enumerate(link_geoms):
+                for g in lg:
+                    geom(BodyKind.ROBOT_LINK, off + li, g, spec.link_names[li])
+        forest, tree_id, _ = merge_forest(trees, base_pose)
+        return dict(
+            robot=forest, robot_base_pose=base_pose, tree_id=tree_id,
+            gravity_mask=np.asarray(grav, np.float32), art_dof_index=art_dof_index,
+            init_qpos=np.concatenate([np.asarray(p, np.float32) for p in init_parts]),
+            drive_kp=np.concatenate(kp_parts), drive_kd=np.concatenate(kd_parts),
+            drive_force_limit=np.concatenate(fl_parts))
+
     def build(self) -> SceneModel:
+        geoms = list(self.geoms)
+        collision_enabled = list(self._collision_enabled)
+        forest = dict(
+            robot=self.robot, robot_base_pose=self.robot_base_pose, tree_id=None,
+            gravity_mask=None, art_dof_index={},
+            init_qpos=self.init_qpos if self.init_qpos is not None else np.zeros(0),
+            drive_kp=self.drive_kp if self.drive_kp is not None else np.zeros(0),
+            drive_kd=self.drive_kd if self.drive_kd is not None else np.zeros(0),
+            drive_force_limit=(self.drive_force_limit if self.drive_force_limit is not None
+                               else np.zeros(0)))
+        if self._articulations:
+            forest = self._merge_articulations(geoms, collision_enabled)
+        tree_id = forest["tree_id"]
+
+        def tree_of(body: int) -> int:
+            return int(tree_id[body]) if tree_id is not None and body >= 0 else 0
+
         fixed = (BodyKind.STATIC, BodyKind.KINEMATIC)
         pairs = []
-        geoms = self.geoms
         for i in range(len(geoms)):
             for j in range(i + 1, len(geoms)):
                 gi, gj = geoms[i], geoms[j]
-                if not (self._collision_enabled[i] and self._collision_enabled[j]):
+                if not (collision_enabled[i] and collision_enabled[j]):
                     continue
                 if gi.kind in fixed and gj.kind in fixed:
                     continue
-                if gi.kind == BodyKind.ROBOT_LINK and gj.kind == BodyKind.ROBOT_LINK:
-                    continue  # same-tree self-collision is off
+                if (gi.kind == BodyKind.ROBOT_LINK and gj.kind == BodyKind.ROBOT_LINK
+                        and tree_of(gi.body) == tree_of(gj.body)):
+                    continue  # same-tree self-collision is off; across trees it is on
+                if frozenset((gi.name, gj.name)) in self._excluded_pairs:
+                    continue
                 if self._group_excluded(gi.name, gj.name):
                     continue
                 # canonical order for contact_fn (lower gtype first)
                 pairs.append((i, j) if gi.gtype <= gj.gtype else (j, i))
         return SceneModel(
-            robot=self.robot,
-            robot_base_pose=self.robot_base_pose,
             free_names=self.free_names,
             free_mass=np.asarray(self.free_mass, dtype=np.float32)
             if self.free_mass else np.zeros(0, dtype=np.float32),
@@ -471,17 +578,13 @@ class SceneSpecBuilder:
             static_names=self.static_names,
             static_pose=np.stack(self.static_pose)
             if self.static_pose else np.zeros((0, 7), dtype=np.float32),
-            geoms=list(geoms),
+            geoms=geoms,
             pairs=pairs,
             params=self.params,
-            drive_kp=self.drive_kp if self.drive_kp is not None else np.zeros(0),
-            drive_kd=self.drive_kd if self.drive_kd is not None else np.zeros(0),
-            drive_force_limit=self.drive_force_limit
-            if self.drive_force_limit is not None else np.zeros(0),
-            init_qpos=self.init_qpos if self.init_qpos is not None else np.zeros(0),
             robot_gravity=self.robot_gravity,
             hull_verts=np.stack(self.hull_verts) if self.hull_verts else None,
             hull_faces=np.stack(self.hull_faces) if self.hull_faces else None,
+            **forest,
         )
 
 

@@ -30,6 +30,9 @@ class MPPIConfig(NamedTuple):
     temperature: float = 0.5  # softmax temperature λ
     ctrl_cost: float = 0.0  # quadratic control cost per step
     noise_beta: float = 0.0  # OU temporal noise correlation (0 = white)
+    # the first solve's nominal, (H, A) in normalized action units (a task
+    # prior, such as the cabinet's approach); None: zeros
+    nominal_init: object = None
 
 
 @dataclass
@@ -52,7 +55,14 @@ class MPPI:
     def init(self, seed: int = 0) -> MPPIState:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        nom = torch.zeros((self.config.horizon, self.action_dim), device=self.device)
+        shape = (self.config.horizon, self.action_dim)
+        if self.config.nominal_init is not None:
+            nom = torch.as_tensor(self.config.nominal_init, dtype=torch.float32,
+                                  device=self.device).clone()
+            if tuple(nom.shape) != shape:
+                raise ValueError(f"nominal_init has shape {tuple(nom.shape)}, expected {shape}")
+        else:
+            nom = torch.zeros(shape, device=self.device)
         return MPPIState(nominal=nom, generator=gen)
 
     def _rollout(self, env_state, controls: torch.Tensor):

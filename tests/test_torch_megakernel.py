@@ -656,7 +656,7 @@ def _kernel_vs_plain(kern, sim, cmd, n, strict, K_, ill_rule=False):
     names = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
                  contact_lam=5e-3, contact_lam_t=5e-3)
     triples = [(getattr(got, k), getattr(ref, k), getattr(f64, k), tol)
-               for k, tol in names.items()]
+               for k, tol in names.items() if getattr(ref, k)[0].numel()]
     triples += [(aux["f_pt"], aux_ref["f_pt"], aux64["f_pt"], 5e-3)]
 
     def beyond(a, b, tol):
@@ -930,7 +930,13 @@ def test_output_plane_is_env_major(stack_scene):
     ("PickCube-v1", 2884),
     # W_in 896 + 41 x 16 + 7 x 18 + TRI(22) 253 + 3 x 22 + 8 x (4 x 22 +
     # 16) + 7 + 7 x 80 = 3,396
-    ("RotateSingleObjectInHandLevel2-v1", 3396)])
+    ("RotateSingleObjectInHandLevel2-v1", 3396),
+    # a robot-only forest (F = 0): W_in 844 + 41 x 10 + 7 x 9 + TRI(10) 55
+    # + 3 x 10 + 8 x (4 x 10 + 16) + 0 + 7 x 168 = 3,026 -> 3,028
+    ("TurnFaucet-v1", 3028),
+    # the Fetch and the drawer: W_in 1528 + 41 x 16 + 7 x 12 + TRI(16) 136
+    # + 3 x 16 + 8 x (4 x 16 + 16) + 7 x 320 = 5,332
+    ("OpenCabinetDrawer-v1", 5332)])
 def test_slice_follows_a_hand_count(task, floats):
     """The floats of one env's shared-memory slice against a count by hand
     of make_layout's sections."""
@@ -939,10 +945,12 @@ def test_slice_follows_a_hand_count(task, floats):
     assert plan.slice_floats() == floats and floats % 4 == 0
 
 
-_IDS = ["PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "RollBall-v1",
+_IDS = ["FoldSuitcase-v1", "FoldSuitcaseModels-v1", "OpenCabinetDoor-v1",
+        "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1",
+        "PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "RollBall-v1",
         "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
-        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1"]
+        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TurnFaucet-v1"]
 
 
 @pytest.mark.parametrize("task", _IDS + ["hull stack"])
@@ -1043,3 +1051,111 @@ def test_launch_refused_for_shared_memory_raises():
     with pytest.raises(RuntimeError, match="launch failed"):
         kern.launch(torch.zeros((4, 64000), device="cuda"), 5)
     assert kern.launches == 0
+
+
+# ---- articulated objects: a kinematic forest, robot-only scenes (F=0) ------
+
+ART_IDS = ["FoldSuitcaseModels-v1", "TurnFaucet-v1", "OpenCabinetDrawer-v1"]
+
+
+@pytest.fixture(scope="module")
+def faucet():
+    e = mtt.make("TurnFaucet-v1", num_envs=K, reward_mode="dense", device="cpu")
+    e.reset(seed=0)
+    return e
+
+
+def test_forest_plan_has_no_free_rows(faucet):
+    """A robot-only forest (the Panda and the faucet's handle, F = 0): the
+    free-body slices of both planes are empty, the packed plane round-trips
+    with zero-width free-body fields, the handle's dof (9) is a root of its
+    own tree, and the handle's points against the fingers have a robot
+    body on each side, in different trees."""
+    model = faucet.model
+    plan = megakernel._Plan(model)
+    assert (plan.F, plan.nq, plan.n_all, plan.G, plan.P) == (0, 10, 10, 9, 168)
+    for sl in (plan.i_free_pose, plan.i_free_vel, plan.i_fmass, plan.i_finertia,
+               plan.o_free_pose, plan.o_free_vel):
+        assert sl[0] == sl[1]
+    assert model.robot.parent[9] == -1 and model.tree_id.tolist() == [0] * 9 + [1]
+    st = faucet._state
+    plane = megakernel.pack(plan, st.sim, st.cmd)
+    assert plane.shape == (K, plan.W_in) and not plane[:, plan.R_in:].any()
+    out = torch.zeros(K, plan.W_out)
+    out[:, plan.o_qpos[0]:plan.o_qpos[1]] = st.sim.qpos
+    back, aux = megakernel.unpack(plan, out, st.sim)
+    assert back.free_pose.shape == (K, 0, 7) and back.free_vel.shape == (K, 0, 6)
+    np.testing.assert_array_equal(back.qpos, st.sim.qpos)
+    assert aux["body_pos"].shape == (K, 10, 3)
+    cross = (plan.pra >= 0) & (plan.prb >= 0)
+    # the hand's box and the fingers' four against the handle, 16 corners each
+    assert cross.sum() == 5 * 16
+    assert (model.tree_id[plan.pra[cross]] != model.tree_id[plan.prb[cross]]).all()
+
+
+def test_work_counts_cross_tree_points_on_both_sides(faucet):
+    """A loaded point with a robot link on each side prices the Jacobian
+    columns of both trees' dofs: the fingers' ancestors (9 dofs of the
+    arm and gripper less the other finger) and the handle's dof."""
+    plan = megakernel._Plan(faucet.model)
+    anc = faucet.model.ancestor_mask
+    cross = np.nonzero((plan.pra >= 0) & (plan.prb >= 0))[0]
+    for p in cross[:4]:
+        ra, rb = plan.pra[p], plan.prb[p]
+        n = np.count_nonzero(anc[ra] - anc[rb])
+        assert n == np.count_nonzero(anc[ra]) + np.count_nonzero(anc[rb])
+    st = faucet.contact_state(faucet._state, torch.Generator().manual_seed(0))
+    _, ops_c, counts_c = megakernel.work(plan, st.sim, st.cmd, 5)
+    _, ops_r, counts_r = megakernel.work(plan, faucet._state.sim, faucet._state.cmd, 5)
+    assert counts_c["loaded"] > counts_r["loaded"] and ops_c > ops_r
+
+
+def test_forest_gravity_and_passive_dofs(faucet):
+    """The static tables carry the forest's per-body gravity (the handle's
+    link only) and the handle's passive drive (kp = kd = 0, limit 1e10),
+    and the handle's joint limits and friction beside the robot's."""
+    model = faucet.model
+    plan = megakernel._Plan(model)
+    mf, mi = plan.tables()
+    names = [n for n in megakernel._enum("Header") if n != "H_COUNT"]
+    head = dict(zip(names, mi[:len(names)].tolist()))
+    np.testing.assert_array_equal(mf[head["F_GMASK"]:head["F_GMASK"] + 10], [0.0] * 9 + [1.0])
+    np.testing.assert_array_equal(mf[head["F_QLIM"] + 18:head["F_QLIM"] + 20],
+                                  np.float32([-2.4, 2.4]))
+    assert mf[head["F_JFRIC"] + 9] == np.float32(0.25)
+    cmd = faucet._state.cmd
+    assert cmd.kp[:, 9].eq(0).all() and cmd.kd[:, 9].eq(0).all()
+    assert cmd.force_limit[:, 9].eq(1e10).all()
+    assert (cmd.kp[:, :7] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ART_IDS)
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_articulated_kernel_matches_plain(task, states):
+    """The articulated scenes (a forest, F = 0) through the CUDA kernel
+    against the plain step on the card, K=37: from reset states with the
+    targets moved, every env where no point carries force in the step
+    within the tolerances, the others refereed; from ``contact_state``
+    states (fingers pressing the lid or the drawer, a lid or a drawer past
+    its limit) under their own command, refereed by a float64 plain step;
+    there the points with a robot link on each side carry force."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    # reset envs where a point carries force in the step (the laptop's lid
+    # through the hand) take the contact states' rule
+    strict = (~touched_in_step(cenv.kernel, st.sim, cmd, 5) if states == "reset"
+              else torch.zeros(37, dtype=torch.bool, device="cuda"))
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, 5, strict, 37)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        plan = cenv.kernel.plan
+        cross = (plan.pra >= 0) & (plan.prb >= 0)
+        assert loaded[:, cross].any(1).mean() >= 0.5
