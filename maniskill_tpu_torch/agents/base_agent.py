@@ -17,7 +17,7 @@ import torch
 from ..kinematics.urdf import RobotSpec, parse_urdf
 from ..physics.model import SceneSpecBuilder
 from ..physics.shapes import GeomType
-from .controllers.base import ControllerConfig, JointController
+from .controllers.base import ControllerConfig, make_controller
 from .controllers.composite import CompositeController
 
 _GEOM_TYPE_BY_NAME = {"box": GeomType.BOX, "sphere": GeomType.SPHERE,
@@ -108,7 +108,7 @@ class BaseAgent:
         named = {}
         for name, cfg in cfgs[control_mode].items():
             cfg.joint_indices = self._resolve_joints(cfg.joint_names)
-            named[name] = JointController(cfg, self.robot_spec.qlim, device)
+            named[name] = make_controller(cfg, self.robot_spec.qlim, device)
         self.controller = CompositeController(named, self.nq, device)
 
     def _make_robot_spec(self) -> RobotSpec:

@@ -3,7 +3,10 @@
 Port of ``maniskill_tpu/agents/controllers/composite.py`` on batched
 tensors: sub-controllers are concatenated in insertion order, the action is
 split by ``action_dim`` and each sub-controller writes drive targets for its
-joints into the full (K, nq) target arrays.
+joints into the full (K, nq) target arrays. A torque sub-controller also
+writes its joints' generalized forces: when the composite has one, ``qf``
+is rebuilt each step, zero on every other dof (``:90-108``); otherwise the
+command's ``qf`` is kept.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ class CompositeController:
         """Split the flat (K, A) action and compute new full-dof targets."""
         tq = cmd.target_qpos.clone()
         tv = torch.zeros_like(tq)
+        qf = None
         off = 0
         for c in self.controllers.values():
             a = action[..., off:off + c.action_dim]
@@ -67,4 +71,10 @@ class CompositeController:
             new_sub = c.set_action(sub, qpos, a)
             tq[..., c._idx] = new_sub.target_qpos
             tv[..., c._idx] = new_sub.target_qvel
-        return cmd.replace(target_qpos=tq, target_qvel=tv)
+            if hasattr(c, "compute_qf"):
+                if qf is None:
+                    qf = torch.zeros_like(tq)
+                qf[..., c._idx] = c.compute_qf(a)
+        if qf is None:
+            return cmd.replace(target_qpos=tq, target_qvel=tv)
+        return cmd.replace(target_qpos=tq, target_qvel=tv, qf=qf)

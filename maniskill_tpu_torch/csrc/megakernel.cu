@@ -14,6 +14,15 @@
 // integration with velocity clamps and the warm-start (lam, lam_t) update.
 // It computes what maniskill_tpu_torch/physics/engine.py computes.
 //
+// Scene classes: a robot tree or a forest of trees (one body and dof a
+// lane: up to 32, the humanoid's 27 included, whose 378 packed LHS entries
+// are 12 a lane), with or without free bodies (F = 0: zero-width slices),
+// and with or without contact points. A contact-free scene (P = 0, G = 0:
+// Cartpole) runs every point loop zero times and reads no per-point or
+// per-geom table (their offsets then sit at their tables' ends): its step
+// is FK, the mass matrix, bias, drives with qf, damping, limits, the factor
+// and the two solves.
+//
 // What bounds it on this card: latency and the number of warps in flight,
 // not bytes. The state in and out is ~7 KB per env per launch (~29 MB at
 // K=4096: microseconds of HBM time), and the step's function needs 3-5 x

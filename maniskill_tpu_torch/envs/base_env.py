@@ -4,9 +4,11 @@ Port of ``maniskill_tpu/envs/base_env.py``: ``EnvState``, ``TaskContext``,
 ``reset``, the per-step core (``_step`` for ``step``, ``_rollout_step`` for
 planners) and the ``state``/``state_dict``/``none`` obs modes. The JAX
 package writes single-env functions and vmaps them; here every function
-takes the batch dimension K leading. Not ported yet: the visual obs modes,
-the sparse reward, the robots and control modes the agents lack, partial resets,
-state-dict get/set and runtime drive-gain changes.
+takes the batch dimension K leading. A task sets its solver parameters by
+overriding ``_sim_params`` (the JAX ``sim_params`` keyword's default). Not
+ported yet: the visual obs modes, the sparse reward, the robots and control
+modes the agents lack, partial resets, state-dict get/set and runtime
+drive-gain changes.
 
 The physics dispatch takes the CUDA mega-kernel (``physics/megakernel.py``)
 for every batch of a model it supports, through ``KernelStep``: the kernel
@@ -28,8 +30,9 @@ from .._consts import const
 from ..agents.base_agent import REGISTERED_AGENTS, BaseAgent
 from ..kinematics import chain
 from ..math.pose import Pose
+from ..math.rotations import _cross
 from ..physics import megakernel
-from ..physics.engine import make_force_query, make_step_fn, robot_fk
+from ..physics.engine import body_velocities, make_force_query, make_step_fn, robot_fk
 from ..physics.model import (DriveCmd, SceneModel, SceneSpecBuilder, SimParams,
                              SimState, _Struct)
 
@@ -86,6 +89,15 @@ class TaskContext:
     @property
     def tcp_pose(self) -> Pose:
         return self.frame_pose(self.env.agent.ee_link_name)
+
+    def body_velocity(self, body_idx: int):
+        """(linear, angular) world velocity (K, 3) each of a robot body's
+        origin."""
+        model = self.env.model
+        ref = const(model, "robot_base_pose", model.robot_base_pose, self.body_pos.device)[:3]
+        v = body_velocities(model, self.body_pos, self.axis_w, self.state.sim.qvel)[:, body_idx]
+        lin = v[:, 3:] + _cross(v[:, :3], self.body_pos[:, body_idx] - ref)
+        return lin, v[:, :3]
 
     def actor_pose(self, name: str) -> Pose:
         i = self.env.model.free_index.get(name)

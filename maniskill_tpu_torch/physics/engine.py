@@ -1,7 +1,8 @@
 """Batched articulated rigid-body dynamics engine (plain PyTorch).
 
 Port of ``maniskill_tpu/physics/engine.py``: ``robot_fk``,
-``joint_columns``, ``all_geom_poses``, ``compute_contacts``,
+``joint_columns`` (with ``body_velocities``, the JAX force query's
+``J q̇``), ``all_geom_poses``, ``compute_contacts``,
 ``_assignment_tables`` (``:291``), ``point_forces`` (``:304``),
 ``make_force_query`` (``:494``), ``pair_force_signs``, ``make_step_fn`` and
 its ``substep`` (``:537-1125``) and ``_trace_metadata`` (``:1127``). The
@@ -11,9 +12,11 @@ ancestor masks start every root from the base pose, gravity is per body
 (``gravity_mask``), joint limits, damping and friction act on every dof,
 passive ones included, and a point with a robot link on each side takes
 both sides' columns (``sm``). Robot-only scenes (no free body) have no
-free-body blocks. Not ported yet: actor-pair drives (``:919-1041``), the
-legacy spring contact mode, and scenes without a robot or without contact
-points.
+free-body blocks. A contact-free scene (P=0: Cartpole's, which has no
+geoms at all) takes empty contact terms, as the JAX ``point_forces`` returns
+them (``:349-352``): its step is the tree dynamics, drives, limits and the
+solve. Not ported yet: actor-pair drives (``:919-1041``), the legacy spring
+contact mode, and scenes without a robot.
 
 Clamps and maxima on the differentiated path go through ``math.clamps``,
 which gives JAX's derivative at a tie (0.5/0.5), so the step's tangents
@@ -59,10 +62,23 @@ def joint_columns(model: SceneModel, body_pos, axis_w, ref) -> torch.Tensor:
     return torch.cat([ang, lin], dim=-1)
 
 
+def body_velocities(model: SceneModel, body_pos, axis_w, qvel) -> torch.Tensor:
+    """(K, nb, 6) spatial velocities [ω; v at the base origin] of every
+    body: v_body = J q̇ with J[b] = anc[b] ∘ colsᵀ (the JAX force query's
+    and ``_link_velocities``' form)."""
+    dev = qvel.device
+    ref = const(model, "robot_base_pose", model.robot_base_pose, dev)[:3]
+    cols = joint_columns(model, body_pos, axis_w, ref)
+    anc = const(model, "ancestor_mask", model.ancestor_mask, dev)
+    return torch.einsum("bk,Kkc,Kk->Kbc", anc, cols, qvel)
+
+
 def all_geom_poses(model: SceneModel, state: SimState, body_pos, body_quat):
     """World poses of every geom, (K, G, 3) and (K, G, 4)."""
     dev = state.qpos.device
     K = state.qpos.shape[0]
+    if not model.geoms:
+        return state.qpos.new_zeros(K, 0, 3), state.qpos.new_zeros(K, 0, 4)
     parts_p, parts_q = [], []
     for i, g in enumerate(model.geoms):
         if g.kind == BodyKind.ROBOT_LINK and g.body >= 0:
@@ -153,6 +169,10 @@ def compute_contacts(model: SceneModel, state: SimState, body_pos, body_quat):
         nrm_l.append(c.normal.reshape(K, -1, 3))
         dep_l.append(c.depth.reshape(K, -1))
     mu, damp, kk, mm, meta_a, meta_b = _point_tables(model)
+    if not pos_l:  # a contact-free scene
+        K = state.qpos.shape[0]
+        pos_l, nrm_l, dep_l = ([state.qpos.new_zeros(K, 0, 3)], [state.qpos.new_zeros(K, 0, 3)],
+                               [state.qpos.new_zeros(K, 0)])
     return (
         torch.cat(pos_l, dim=1), torch.cat(nrm_l, dim=1), torch.cat(dep_l, dim=1),
         const(model, "cmu", mu, dev), const(model, "cdamp", damp, dev),
@@ -201,6 +221,9 @@ def point_forces(model: SceneModel, state: SimState, body_pos, body_quat,
     ref = const(model, "robot_base_pose", model.robot_base_pose, dev)[:3]
     (cpos, cnrm, cdep, cmu, _cdamp, ck, _cm, _, _) = compute_contacts(
         model, state, body_pos, body_quat)
+    if model.n_points == 0:  # no contact terms (the JAX :349-352)
+        lam, lam_t = state.contact_lam, state.contact_lam_t
+        return cpos, cpos, (lambda vb, fv: (lam, lam_t)), (cpos, cnrm, cdep, cdep, cdep)
     rel_a = cpos - ref
 
     def side_point_vel(A_robot, A_free, vbody, fvel):
@@ -280,14 +303,9 @@ def make_force_query(model: SceneModel):
     tables = _assignment_tables(model)
 
     def query(state: SimState, fk=None):
-        dev = state.qpos.device
         body_pos, body_quat, axis_w = fk if fk is not None else robot_fk(
             model, state.qpos)
-        ref = const(model, "robot_base_pose", model.robot_base_pose, dev)[:3]
-        cols = joint_columns(model, body_pos, axis_w, ref)
-        anc = const(model, "ancestor_mask", model.ancestor_mask, dev)
-        # v_body = J @ q̇ with J[b] = anc[b] ∘ colsᵀ (the JAX query's form)
-        v_body = torch.einsum("bk,Kkc,Kk->Kbc", anc, cols, state.qvel)
+        v_body = body_velocities(model, body_pos, axis_w, state.qvel)
         _, f_pos, _, aux = point_forces(model, state, body_pos, body_quat,
                                         v_body, tables)
         return f_pos, aux
@@ -359,8 +377,6 @@ def make_step_fn(model: SceneModel):
     constants follow it)."""
     if model.robot is None:
         raise NotImplementedError("scenes without a robot are not ported")
-    if model.n_points == 0:
-        raise NotImplementedError("contact-free scenes are not ported")
     spec = model.robot
     params = model.params
     nq, n_free = model.nq, model.n_free

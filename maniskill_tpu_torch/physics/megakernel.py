@@ -21,7 +21,11 @@ The row plan takes a kinematic forest (the robot's tree and articulated
 objects' trees, ``SceneSpecBuilder.add_articulation``) as one robot: its
 dofs, bodies and per-body tables (gravity flags, limits, friction) are the
 forest's, and a point with a robot link on each side takes both sides'
-columns. A robot-only scene (F=0) has zero-width free-body slices.
+columns. A robot-only scene (F=0) has zero-width free-body slices, and a
+contact-free scene (P=0, Cartpole's: no geoms either) zero-width point
+rows (``i_lam``, ``i_lamt``, ``o_fpt``: (K, 0) planes in the state): the
+kernel's point loops run zero times, and its step is FK, the mass matrix,
+bias, drives with ``qf``, damping, limits, the factor and the solves.
 
 Hull pairs (``plane_hull``, ``sphere_hull``, ``box_hull``,
 ``capsule_hull``, ``hull_hull``) read each env's contact cloud and face
@@ -90,10 +94,13 @@ def supports(model: SceneModel) -> bool:
     """Whether the CUDA kernel covers this model: velocity contact mode, a
     robot (its tree, or a forest of its tree and articulated objects'
     trees, each root placed from the shared base pose; no free body is
-    needed), pair functions among those the kernel implements, hull
-    tables of the kernel's padded sizes, sizes within its compile-time
-    caps, and a block's shared-memory slices within the card's 227 KB. (The port's ``SceneModel`` has no pair
-    drives yet, so they need no test here.)
+    needed), pair functions among those the kernel implements (or none: a
+    contact-free scene, P=0, as the JAX kernel takes it with single-tile
+    dummies, ``:520``, ``:1097-1102``), hull tables of the kernel's padded
+    sizes, sizes within its compile-time caps (32 dofs: the Humanoid's 27
+    fit), and a block's shared-memory slices within the card's 227 KB.
+    (The port's ``SceneModel`` has no pair drives yet, so they need no
+    test here; no registered task is robot-less.)
 
     The JAX kernel also refuses scenes whose hull pairs evaluate more than
     160 face-plane SDF points a substep (``_hull_cost``, ``:63-80``): a
@@ -104,8 +111,6 @@ def supports(model: SceneModel) -> bool:
     runs."""
     caps = _caps()
     if model.params.contact_mode != "velocity" or model.robot is None:
-        return False
-    if model.n_points == 0:
         return False
     for (fn, *_rest) in model.pair_groups:
         if fn.__name__ not in _FNS:
@@ -359,7 +364,8 @@ def _cholesky_ops(n: int) -> int:
 def work(plan: _Plan, state: SimState, cmd: DriveCmd, n_substeps: int):
     """``(bytes, operations, counts)`` of one launch on these inputs.
 
-    Bytes: each plane read or written once, plus the static tables.
+    Bytes: each plane read or written once, plus the static tables. A
+    contact-free scene (P=0) has the fixed terms only.
     Operations: ``OPS`` summed over what this run's data needs. The fixed
     terms (FK, geom poses, mass matrix, bias, drives, free bodies, Cholesky
     pair solve) and every point's narrowphase count once per substep; the

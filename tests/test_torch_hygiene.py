@@ -32,9 +32,13 @@ import maniskill_tpu_torch.envs.tasks.rotate_in_hand
 import maniskill_tpu_torch.envs.tasks.articulated, maniskill_tpu_torch.envs.tasks.fold_suitcase
 import maniskill_tpu_torch.agents.robots.fetch, maniskill_tpu_torch.kinematics.articulation
 import maniskill_tpu_torch.mppi_ab
+import maniskill_tpu_torch.kinematics.mjcf, maniskill_tpu_torch.agents.robots.cartpole
+import maniskill_tpu_torch.envs.tasks.cartpole, maniskill_tpu_torch.envs.tasks.control_suite
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 maniskill_tpu_torch.make("RotateSingleObjectInHandLevel2-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("OpenCabinetDrawer-v1", num_envs=2, device="cpu").reset(seed=0)
+maniskill_tpu_torch.make("MS-HumanoidStand-v1", num_envs=2, device="cpu").reset(seed=0)
+maniskill_tpu_torch.make("MS-CartpoleBalance-v1", num_envs=2, device="cpu").reset(seed=0)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))
@@ -58,6 +62,7 @@ def test_make_without_device_raises_without_cuda(monkeypatch):
         mtt.make("PickCube-v1", num_envs=1, device="cuda")
     assert mtt.make("PickCube-v1", num_envs=1, device="cpu").device.type == "cpu"
     for task in ("PlugCharger-v1", "RollBall-v1", "RotateSingleObjectInHandLevel2-v1",
-                 "FoldSuitcase-v1", "TurnFaucet-v1", "OpenCabinetDrawer-v1"):
+                 "FoldSuitcase-v1", "TurnFaucet-v1", "OpenCabinetDrawer-v1",
+                 "MS-HumanoidStand-v1", "MS-CartpoleBalance-v1"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mtt.make(task, num_envs=1)
