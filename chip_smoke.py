@@ -80,9 +80,12 @@ Phases (each passes or ends the script with a non-zero exit):
      timed plan steps, split into CEM and iLQR (and iLQR into its rollouts,
      linearizations and line searches), K2's launches per plan step
      checked against the design, then one env step with the planned action;
-  7. hold K1 against its plain version (n = 9, 15, 21; K = 4096 and 37),
-     time it beside its plain version and the library call, and drive its
-     entry point once;
+  7. hold K1 against its plain version (n = 1, 9, 15, 21, 27, 32; K =
+     4096, 37 and 1; SPD systems and non-PD ones with exact pivots, the
+     strict upper triangle of A NaN), time it (launches back to back, device
+     time) beside its entry point and the library call at n = 9, 15, 21,
+     27 and K = 4096, 16384, 65536, and its plain version at K = 4096, and
+     drive its entry point once;
   8. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
@@ -127,7 +130,10 @@ REFEREE_FACTOR = 3.0
 # same plain step, but the reward's are taken at the kernel's primal, which
 # differs from the plain step's by float32 rounding
 SEAM_REL_TOL = 1e-3
-K1_TOL = 1e-4  # A = X Xᵀ + n I, float32, n <= 21
+K1_TOL = 1e-4  # A = X Xᵀ + n I, float32, n <= 32
+# K1 on non-PD systems (exact pivots): finite entries against the system's
+# largest |x|, and a diagonal system's entry by entry
+K1_REL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 
@@ -1192,9 +1198,12 @@ def cem_ilqr_phase(mtt, planners):
 
 
 def solve_phase(linalg, solve_kernel):
-    """Phase 7: K1 against its plain version; times at K=4096, n=21."""
+    """Phase 7: K1 against its plain version at the CUDA test's shapes, SPD
+    and non-PD, the strict upper triangle NaN; times at n = 9, 15, 21, 27
+    and K = 4096, 16384, 65536; its entry point driven once. Returns the
+    ``kernels`` line's numbers for n = 21 at K = 4096 and at K = 65536."""
     import torch
-    from maniskill_tpu_torch._cuda import event_ms
+    from maniskill_tpu_torch._cuda import event_ms, queued_ms
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1204,42 +1213,90 @@ def solve_phase(linalg, solve_kernel):
         A = X @ X.transpose(1, 2) + n * torch.eye(n, device="cuda")
         return A, torch.randn((K, n), generator=gen, device="cuda")
 
-    max_err, timing = 0.0, {}
-    for n in (9, 15, 21):
-        for K in (4096, 37):
+    def non_pd(K, n):
+        """System k % 4: a pivot of -1 in row 0, a zero pivot in the last
+        row, a zero pivot in row 0 (each beside the rest of an SPD matrix),
+        the diagonal (2, -1, 3, ...): pivots exact in float32."""
+        A, b = systems(K, n)
+        case = torch.arange(K, device="cuda") % 4
+        row = torch.where(case == 1, n - 1, 0)
+        keep = torch.arange(n, device="cuda")[None, :] != row[:, None]  # (K, n)
+        A = A * (keep[:, :, None] & keep[:, None, :])
+        A[torch.arange(K, device="cuda"), row, row] = torch.where(case == 0, -1.0, 0.0)
+        diag = torch.diag(torch.tensor([2.0, -1.0, 3.0], device="cuda").repeat(n)[:n])
+        return torch.where((case == 3)[:, None, None], diag, A), b
+
+    def nan_upper(A):
+        n = A.shape[-1]
+        upper = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
+        return A.masked_fill(upper, float("nan"))
+
+    max_err = max_rel = 0.0
+    for n in (1, 9, 15, 21, 27, 32):
+        for K in (4096, 37, 1):
+            for case in ("spd", "non_pd"):
+                A, b = systems(K, n) if case == "spd" else non_pd(K, n)
+                got = solve_kernel.solve_psd(nan_upper(A), b)
+                ref = linalg.solve_psd(A, b)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(ref)
+                if not torch.equal(torch.isfinite(got), fin):
+                    fail(f"K1 n={n} K={K} {case}: non-finite entries in other places than the "
+                         "plain version's")
+                err = (got - ref).abs().where(fin, 0.0)
+                if case == "spd":
+                    max_err = max(max_err, float(err.max()))
+                    if float(err.max()) > K1_TOL:
+                        fail(f"K1 disagrees with its plain version at n={n}, K={K}: "
+                             f"{float(err.max()):.3e}")
+                    continue
+                # the finite entries within 1e-5 of the system's largest
+                # |x|; the diagonal systems entry by entry
+                scale = ref.abs().where(fin, 0.0).amax(dim=1, keepdim=True)
+                rel = float((err / scale.clamp_min(1e-30)).max())
+                diag = err[3::4] / ref[3::4].abs()
+                rel = max(rel, float(diag.max()) if diag.numel() else 0.0)
+                max_rel = max(max_rel, rel)
+                if rel > K1_REL_TOL:
+                    fail(f"K1 disagrees with its plain version on non-PD systems at n={n}, "
+                         f"K={K}: {rel:.3e} relative")
+    print(f"[k1] n in (1, 9, 15, 21, 27, 32), K in (4096, 37, 1), strict upper triangle NaN: "
+          f"SPD max |kernel - plain| {max_err:.3e} (tol {K1_TOL:g}); non-PD (a negative or a "
+          f"zero pivot) non-finite entries in the plain version's places, finite ones "
+          f"{max_rel:.3e} relative (tol {K1_REL_TOL:g})", flush=True)
+
+    def library(A, b):
+        L, _info = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+    numbers = {}
+    for n in (9, 15, 21, 27):
+        for K in (4096, 16384, 65536):
             A, b = systems(K, n)
-            got = solve_kernel.solve_psd(A, b)
-            ref = linalg.solve_psd(A, b)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                fail(f"K1 n={n} K={K}: not finite")
-            err = float((got - ref).abs().max())
-            max_err = max(max_err, err)
-            print(f"[k1] n={n} K={K}: max |kernel - plain| = {err:.3e} (tol {K1_TOL:g}, "
-                  f"max |x| {float(ref.abs().max()):.3e})")
-            if err > K1_TOL:
-                fail(f"K1 disagrees with its plain version at n={n}, K={K}: {err:.3e}")
-        A, b = systems(4096, n)
-        At, bt = solve_kernel.to_planes(A, b)
-        solve_kernel.launch(At, bt)
-        k_ms = event_ms(lambda: solve_kernel.launch(At, bt), 50)
-        w_ms = event_ms(lambda: solve_kernel.solve_psd(A, b), 50)
-        p_ms = event_ms(lambda: linalg.solve_psd(A, b), 10)
-
-        def library():
-            L, _info = torch.linalg.cholesky_ex(A)
-            return torch.cholesky_solve(b[..., None], L)
-
-        lib_err = float((library()[..., 0] - linalg.solve_psd(A, b)).abs().max())
-        l_ms = event_ms(library, 50)
-        nbytes, ops = solve_kernel.work(4096, n)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        timing[n] = (k_ms, p_ms, l_ms, bytes_ms, ops_ms)
-        print(f"[time] K1 n={n} K=4096: kernel {k_ms:.4f} ms, with the layout transposes "
-              f"{w_ms:.4f} ms, plain {p_ms:.4f} ms, library (cholesky_ex + cholesky_solve, "
-              f"max |lib - plain| {lib_err:.1e}) {l_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> {bytes_ms:.5f} ms, {ops:.0f} ops "
-              f"-> {ops_ms:.5f} ms)", flush=True)
+            solve_kernel.launch(A, b)
+            k_ms = queued_ms(lambda: solve_kernel.launch(A, b), 50)
+            w_ms = queued_ms(lambda: solve_kernel.solve_psd(A, b), 50)
+            k_call_ms = event_ms(lambda: solve_kernel.launch(A, b), 50)
+            l_ms = event_ms(lambda: library(A, b), 20)  # it waits on the host: timed alone
+            lib_err = float((library(A, b) - solve_kernel.launch(A, b)).abs().max())
+            p_ms = event_ms(lambda: linalg.solve_psd(A, b), 10) if K == 4096 else None
+            nbytes, ops = solve_kernel.work(K, n)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            numbers[n, K] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"[time] K1 n={n} K={K}: kernel {k_ms:.4f} ms ({bound / k_ms * 100:.1f} % of "
+                  f"the bound; {k_call_ms:.4f} ms a launch timed alone, the host's call "
+                  f"included), entry point {w_ms:.4f} ms, library (cholesky_ex + "
+                  f"cholesky_solve, max |lib - kernel| {lib_err:.1e}) {l_ms:.4f} ms, plain "
+                  + (f"{p_ms:.4f} ms" if p_ms is not None else "not timed")
+                  + f", bound {bound:.5f} ms ({nbytes} B -> {bytes_ms:.5f} ms, {ops:.0f} ops "
+                  f"-> {ops_ms:.5f} ms)", flush=True)
+            if k_call_ms > l_ms:
+                print(f"[time] K1 n={n} K={K}: the kernel, timed alone, is slower than the "
+                      "library call", flush=True)
+            del A, b
+    torch.cuda.empty_cache()
     # its entry point, driven once as a caller would (n = 21: StackCube's
     # n_all), with the count read around it
     A, b = systems(4096, 21)
@@ -1249,10 +1306,11 @@ def solve_phase(linalg, solve_kernel):
     launches = solve_kernel.launches
     if launches != 1 or not bool(torch.isfinite(x).all()):
         fail(f"solve_psd launched K1 {launches} times, not 1, or gave non-finite x")
-    k_ms, p_ms, l_ms, bytes_ms, ops_ms = timing[21]
-    return dict(launches=launches, max_err=max_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=l_ms)
+    out = {}
+    for K in (4096, 65536):
+        out[K] = dict(launches=launches, max_err=max_err, **numbers[21, K])
+    out[65536]["plain_ms"] = numbers[21, 4096]["plain_ms"]
+    return out
 
 
 def main():
@@ -1280,10 +1338,13 @@ def main():
           flush=True)
     for lib in libs:
         log = lib.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if any(w in line for w in ("registers", "spill", "stack frame", "smem")):
-                    print(f"[build] {lib.name.split('_')[0]}: {line.strip()}")
+        if log.exists():  # K1 has a kernel for each n: identical lines counted once
+            lines = [line.strip() for line in log.read_text().splitlines()
+                     if any(w in line for w in ("registers", "spill", "stack frame", "smem"))]
+            for line in dict.fromkeys(lines):
+                count = lines.count(line)
+                print(f"[build] {lib.name.split('_')[0]}: {line}"
+                      + (f" (x{count})" if count > 1 else ""))
     caps = megakernel._caps()
     print(f"[build] megakernel: {caps['WARPS']} envs (warps) a block, each env's slice of "
           "shared memory sized per scene at launch (dynamic; [time] lines)", flush=True)
@@ -1398,6 +1459,7 @@ def main():
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
     # path's K; path_ms and path_bound_ms: the MPPI path's own launches
     k2_src, k2_tpu = "maniskill_tpu_torch/csrc/megakernel.cu", "maniskill_tpu/physics/megakernel.py:494"
+    k1_src, k1_tpu = "maniskill_tpu_torch/csrc/solve_psd.cu", "maniskill_tpu/physics/pallas_kernels.py:27"
     print(json.dumps({"kernels": [
         entry("megakernel_step", k2_src, k2_tpu, pick) | {"inputs": f"PickCube-v1, K={K_CHECK}"},
         entry("megakernel_step", k2_src, k2_tpu, stack)
@@ -1419,8 +1481,10 @@ def main():
         | {"inputs": f"MS-HopperStand-v1, K={K_CHECK}, contact states"},
         entry("megakernel_step", k2_src, k2_tpu, cartpole)
         | {"inputs": f"MS-CartpoleBalance-v1, K={K_CHECK}, settled states (P=0)"},
-        entry("solve_psd", "maniskill_tpu_torch/csrc/solve_psd.cu",
-              "maniskill_tpu/physics/pallas_kernels.py:27", k1, k1["library_ms"]),
+        entry("solve_psd", k1_src, k1_tpu, k1[4096], k1[4096]["library_ms"])
+        | {"inputs": "n=21, K=4096, SPD"},
+        entry("solve_psd", k1_src, k1_tpu, k1[65536], k1[65536]["library_ms"])
+        | {"inputs": "n=21, K=65536, SPD; plain_ms at K=4096"},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ keyed by a hash of the source and the shared headers (``csrc/*.cuh``), and
 loaded with ``ctypes``. ``build`` starts one ``nvcc`` per source, all at
 once. The compiler's report (``-Xptxas -v``: registers, stack, spills) is
 kept beside each library as ``.log``. ``event_ms`` times device work with
-CUDA events. Nothing here runs at import.
+CUDA events, ``queued_ms`` device work shorter than its host call. Nothing
+here runs at import.
 """
 from __future__ import annotations
 
@@ -89,3 +90,27 @@ def event_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int, sleep_cycles: int = 20_000_000) -> float:
+    """Mean device time in ms of ``fn()`` over ``reps`` runs back to back.
+    The runs are queued behind a device spin of ``sleep_cycles`` cycles, so
+    the card runs them without waiting on the host: a launch shorter than
+    its host call would otherwise time the host. If the spin ended before
+    the last run was queued, the spin is doubled and the runs timed again."""
+    import torch
+
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_in_time = not a.query()  # the card still spinning: nothing waited on the host
+        b.synchronize()
+        if queued_in_time:
+            return a.elapsed_time(b) / reps
+        sleep_cycles *= 2
+    raise RuntimeError(f"the host took longer to queue {reps} runs than the card's spin")
