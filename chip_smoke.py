@@ -51,7 +51,12 @@ Phases (each passes or ends the script with a non-zero exit):
      fault planted in its friction or normal-gain table), then a
      10-control-step settle;
      MS-CartpoleBalance-v1 (P = 0, G = 0) from reset states and after a
-     10-step settle, every env held in full; and K2 on
+     10-step settle, every env held in full; the rest of the BASELINE MPC
+     set at K=4096: PushCube-v1 (its cube held as PickCube's), PokeCube-v1
+     (a held peg pressing a cube: the free-free box_box points loaded) and
+     PegInsertionSide-v1 (a peg sized per env through geom_size, held with
+     its head in a hole of four kinematic walls: peg-wall points loaded);
+     and K2 on
      PickCube reset states at K=1 (iLQR's rollouts) and at a ragged
      K=4,097, every env within the tolerances;
   3. the differentiable step on the card: the JVP and the VJP of one
@@ -74,6 +79,22 @@ Phases (each passes or ends the script with a non-zero exit):
      planner configs (each env class's ``MPPI_CONFIG``), one kernel launch a
      rollout step; then the control-suite paths, MS-HumanoidStand-v1,
      MS-CartpoleBalance-v1 and MS-HopperStand-v1, at the bench shape;
+     then the rest of the BASELINE MPC set: PegInsertionSide-v1 MPPI at
+     BASELINE config #4 (H=80, K=16384, sigma 0.4 per arm joint and 0.1 for
+     the gripper, temperature 0.1: 80 kernel launches a solve) and
+     PokeCube-v1 MPPI at its planner config (H=25, K=2048); then PushCube-v1
+     episodes at its planner config (H=20, K=2048), seed 0, 50 control
+     steps: ``run_episode_device`` (each control step one CUDA graph:
+     the MPPI solve with its noise draw, the env step, the freeze after
+     success; replayed 50 times under ``set_sync_debug_mode("error")``)
+     against ``run_episode`` (the host loop): the first actions agree within
+     1e-4, the cube ends nearer its goal, the graph holds 21 K2 kernel
+     nodes (read from the graph: the replays launch K2 without its
+     wrapper, which counts the warm-up step and the capture only); a
+     second device episode's 10 replays under torch.profiler for their
+     device busy and K2 times; the
+     graph's node count and capture time; and one device episode at
+     BASELINE config #1's literal shape (H=30, K=256);
   6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
      iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 2
@@ -110,6 +131,11 @@ K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
 H_PLAN, K_CEM, ELITES, CEM_ITERS, ILQR_ITERS = 60, 1024, 64, 4, 3
 TIMED_PLANS = 2
 K_SEAM = 64
+# PushCube-v1 episodes: control steps, and how far the device loop's first
+# action may be from the host loop's (one program, the same draws)
+EPISODE_STEPS, EPISODE_TOL = 50, 1e-4
+# replays of the profiled device episode (a replay is ~11,300 device ops)
+PROFILED_STEPS = 10
 # the MPPI paths' bound counts every 5th launch of the warm-up solve
 # (rollout steps 0, 5, ..., 45): megakernel.work reruns the plain step
 # substep by substep, about two plain steps a launch (PlugCharger 1.2 s)
@@ -152,25 +178,34 @@ def as64(x):
                         and v.is_floating_point()})
 
 
+def new_profile():
+    """A torch.profiler profile of the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+
+
+def device_rows(prof):
+    """(name, device microseconds, count) of a finished profile's
+    device-side rows (kernels, copies): operator rows repeat the device
+    time of the kernels they launch, so they are left out."""
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0]
+
+
 def profile_solve(planner, ps, state):
     """Where one solve's device time goes (torch.profiler over one solve):
     device busy share of the wall time and the top kernels by device time.
     Runs after the launch count is read; prints "not measured" when the
     profiler sees no device activity."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with new_profile() as prof:
         t0 = time.perf_counter()
         planner.solve(ps, state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side rows only (kernels, copies): operator rows repeat the
-    # device time of the kernels they launch
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         print("[profile] device time: not measured (no CUDA activity recorded)")
@@ -304,6 +339,68 @@ def roll_branches(env, plan, cst, loaded, depth):
         "ball-table sphere_box loaded": loaded[table][:, sphere_box & ~robot].sum(1) >= 1,
         "ball-floor plane_sphere loaded": loaded[floor][:, pfn == _FNS.index("plane_sphere")].sum(1) >= 1,
         "friction lam_t nonzero (table, floor)": lam_t[~finger].sum(1) >= 1,
+    }
+
+
+def poke_branches(env, plan, cst, loaded, depth):
+    """What must carry force in PokeCube contact states (the peg held
+    between the fingers, the cube pressed against its head): the finger-peg
+    box_box_corners points and the peg-cube box_box points (the scene's two
+    free bodies against each other), with friction. Prints the share of
+    envs with peg-cube points loaded."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    pfn = torch.as_tensor(plan.pfn, device=dev)
+    robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device=dev)
+    box_box = pfn == _FNS.index("box_box")
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: peg-cube box_box points loaded "
+          f"in {100 * float(loaded[:, box_box].any(1).float().mean()):.1f} % of the envs "
+          f"({int(loaded[:, box_box].sum())} points)")
+    return {
+        "finger-peg box_box_corners loaded":
+            loaded[:, pfn == _FNS.index("box_box_corners")].sum(1) >= 4,
+        "peg-cube box_box loaded": loaded[:, box_box].sum(1) >= 1,
+        "peg/cube-table box_box_onesided loaded":
+            loaded[:, (pfn == _FNS.index("box_box_onesided")) & ~robot].sum(1) >= 1,
+        "friction lam_t nonzero": lam_t.sum(1) >= 6,
+    }
+
+
+def peg_branches(env, plan, cst, loaded, depth):
+    """What must carry force in PegInsertionSide contact states (the held
+    peg's head in the hole, on its bottom wall; in odd envs also against
+    the side wall at +y): the finger-peg box_box_corners points and the
+    peg-wall box_box_onesided points (a free box against the kinematic
+    box's four wall geoms: the pair table's function for a free body
+    against a kinematic one), with friction. Prints the share of envs
+    with peg-wall points loaded."""
+    import numpy as np
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    pfn = torch.as_tensor(plan.pfn, device=dev)
+    geoms = env.model.geom_indices("box_with_hole")
+    wall = torch.as_tensor(np.isin(plan.pga, geoms) | np.isin(plan.pgb, geoms), device=dev)
+    side = torch.as_tensor(np.isin(plan.pga, geoms[:1]) | np.isin(plan.pgb, geoms[:1]),
+                           device=dev)
+    odd = torch.arange(loaded.shape[0], device=dev) % 2 == 1
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: peg-wall box_box_onesided points "
+          f"loaded in {100 * float(loaded[:, wall].any(1).float().mean()):.1f} % of the envs "
+          f"({int(loaded[:, wall].sum())} points), against the +y wall in "
+          f"{100 * float(loaded[odd][:, side].any(1).float().mean()):.1f} % of the odd envs")
+    return {
+        "finger-peg box_box_corners loaded":
+            loaded[:, pfn == _FNS.index("box_box_corners")].sum(1) >= 4,
+        "peg-wall box_box_onesided loaded": loaded[:, wall].sum(1) >= 1,
+        "peg-side-wall box_box_onesided loaded (odd envs)": loaded[odd][:, side].sum(1) >= 1,
+        "peg-wall friction lam_t nonzero": lam_t[:, wall].sum(1) >= 1,
     }
 
 
@@ -1032,7 +1129,8 @@ def seam_phase(mtt, ILQR, ILQRConfig):
     return worst
 
 
-def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0, **overrides):
+def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
+               bound_every=PATH_BOUND_EVERY, **overrides):
     """Phases 4 and 5: MPPI on one task at its env class's ``MPPI_CONFIG``
     (``overrides``: MPPIConfig keyword arguments that replace it), one
     warm-up and TIMED_SOLVES timed solves, K2's launches counted and its
@@ -1041,7 +1139,7 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
     the others zero weight), and the nominal must be finite.
     Returns the launches, the kernel's mean device time per launch in the
     timed solves, and the mean bound of a launch, counted by
-    ``megakernel.work`` on the inputs of every PATH_BOUND_EVERY-th launch
+    ``megakernel.work`` on the inputs of every ``bound_every``-th launch
     of the warm-up solve (the rollouts' own states and commands)."""
     import torch
 
@@ -1055,7 +1153,7 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
     step, path_work, calls = kern.step, [], [0]
 
     def counted_step(sim, cmd, n_steps):
-        if calls[0] % PATH_BOUND_EVERY == 0:
+        if calls[0] % bound_every == 0:
             path_work.append(megakernel.work(kern.plan, sim, cmd,
                                              n_steps * env1.model.params.substeps)[:2])
         calls[0] += 1
@@ -1116,10 +1214,132 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
           f"{100 * kernel_busy_ms / (dt * 1e3):.1f} % of the wall time; bound per launch on "
           f"the warm-up solve's inputs {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f} ms, "
           f"operations {ops_ms:.5f} ms, mean of {len(path_work)} launches: every "
-          f"{PATH_BOUND_EVERY}th of the warm-up solve's)", flush=True)
+          f"{bound_every}th of the warm-up solve's)", flush=True)
     profile_solve(planner, ps, env1._state)
     return dict(launches=launches, path_ms=kernel_busy_ms / len(spans),
                 path_bound_ms=max(bytes_ms, ops_ms))
+
+
+def episode_phase(mtt, planners):
+    """Phase 5f: PushCube-v1 episodes at its ``MPPI_CONFIG`` (H=20, K=2048),
+    seed 0, EPISODE_STEPS control steps: ``run_episode_device`` (each
+    control step one CUDA graph, replayed under
+    ``set_sync_debug_mode("error")``) and ``run_episode(stop_on_success=
+    False)`` (the host loop). The first control step's actions must agree
+    within EPISODE_TOL and the device episode must end with the cube nearer
+    its goal than it started. K2's wrapper counts the device episode's
+    warm-up step and its capture (H + 1 calls each: the rollouts' and the
+    env step's); the replays launch K2 without the wrapper, so the captured
+    graph's kernel nodes are read from the graph itself (libcuda), and the
+    graph must hold H + 1 K2 nodes, each launched once a replay. A second
+    device episode from the same seed runs PROFILED_STEPS replays under
+    torch.profiler for the replays' device busy time and K2's share of it
+    (the profiler drops some of a graph's kernel records, 0-10 % in a
+    profile on an H100, so its counts are printed, not gated). Then one
+    device episode at BASELINE config #1's literal shape (H=30, K=256),
+    whose actions and return must be finite. Returns the device episode's
+    numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    env = mtt.make("PushCube-v1", num_envs=1, obs_mode="none", reward_mode="dense")
+    cfg = planners.MPPIConfig(**type(env).MPPI_CONFIG)
+    planner = planners.MPPI(env, cfg)
+    H = cfg.horizon
+
+    def cube_to_goal():
+        sim = env._state.sim
+        return float(torch.linalg.norm(sim.free_pose[0, env.cube, :2]
+                                       - sim.kin_pose[0, env.goal_region, :2]))
+
+    env.reset(seed=0)
+    d0 = cube_to_goal()
+    env.kernel.launches = 0
+    stats = {}
+    dev = planners.run_episode_device(env, planner, seed=0, max_steps=EPISODE_STEPS, stats=stats)
+    dev_launches = env.kernel.launches
+    kernels = stats["graph_kernels"] or {}
+    k2_nodes = sum(c for name, c in kernels.items() if "mk_kernel" in name)
+    graph_launches = k2_nodes * EPISODE_STEPS
+    d_dev = cube_to_goal()
+    env.kernel.launches = 0
+    host = planners.run_episode(env, planner, seed=0, max_steps=EPISODE_STEPS,
+                                stop_on_success=False)
+    host_launches = env.kernel.launches
+    d_host = cube_to_goal()
+    err0 = float(np.abs(dev["actions"][0] - host["actions"][0]).max())
+    n = dev["steps"]
+    err_n = float(np.abs(dev["actions"][:n] - host["actions"][:n]).max())
+    print(f"[episode] PushCube-v1 device loop (CUDA graph) H={H} K={cfg.num_samples}: "
+          f"{dev['replan_hz']:.2f} control steps/s over {EPISODE_STEPS} replays, success "
+          f"{dev['success']} at step {dev['steps']}, return {dev['episode_return']:.4f}, "
+          f"cube-to-goal {d0:.4f} -> {d_dev:.4f} m; graph of {stats['graph_nodes']} nodes, "
+          f"captured in {stats['capture_s']:.2f} s (with the warm-up step), "
+          f"{dev_launches} K2 wrapper calls (warm-up and capture), {k2_nodes} K2 kernel "
+          f"nodes in the graph ({graph_launches} K2 launches in the replays)", flush=True)
+    print(f"[episode] PushCube-v1 host loop H={H} K={cfg.num_samples}: {host['replan_hz']:.2f} "
+          f"plan steps/s (after the first), success {host['success']}, return over "
+          f"{host['steps']} steps {host['episode_return']:.4f}, cube-to-goal {d0:.4f} -> "
+          f"{d_host:.4f} m, {host_launches} K2 launches", flush=True)
+    print(f"[episode] first action device vs host: max |diff| {err0:.3e}; over the device "
+          f"episode's {n} steps {err_n:.3e}", flush=True)
+    if err0 > EPISODE_TOL:
+        fail(f"the device episode's first action differs from the host loop's by {err0:.3e}")
+    if dev_launches != 2 * (H + 1):
+        fail(f"K2's wrapper ran {dev_launches} times in the device episode's warm-up and "
+             f"capture, not {2 * (H + 1)}")
+    if k2_nodes != H + 1:
+        fail(f"the graph holds {k2_nodes} K2 kernel nodes, not {H + 1} (its kernel nodes: "
+             f"{stats['graph_kernels']})")
+    if not (np.isfinite(dev["actions"]).all() and d_dev < d0):
+        fail(f"the device episode did not bring the cube nearer its goal ({d0:.4f} -> "
+             f"{d_dev:.4f} m)")
+    # the replays' device time, from a profile of the replays of a second
+    # device episode (the profiler slows the host, so the first episode's
+    # rate is the one reported)
+    prof = new_profile()
+    prof_ep = planners.run_episode_device(env, planner, seed=0, max_steps=PROFILED_STEPS,
+                                          around_replays=prof)
+    rows = device_rows(prof)
+    k2_rows = [r for r in rows if r[0].startswith("mk_kernel")]
+    prof_k2 = sum(r[2] for r in k2_rows)
+    graph_k2_us = sum(r[1] for r in k2_rows)
+    busy_us = sum(r[1] for r in rows)
+    prof_ops = sum(r[2] for r in rows)
+    prof_wall_us = PROFILED_STEPS / prof_ep["replan_hz"] * 1e6
+    k2_each_ms = busy_ms_per_replay = None  # null where not measured
+    if busy_us <= 0:
+        print("[episode] profile of the replays: not measured (no CUDA activity recorded)")
+    else:
+        k2_each_ms = graph_k2_us / max(prof_k2, 1) / 1e3
+        busy_ms_per_replay = busy_us / PROFILED_STEPS / 1e3
+        print(f"[episode] profile of {PROFILED_STEPS} replays: wall {prof_wall_us / 1e3:.1f} ms "
+              f"(profiled), device busy {busy_us / 1e3:.3f} ms "
+              f"({100 * busy_us / prof_wall_us:.1f} %), {prof_ops} device ops recorded "
+              f"({stats['graph_nodes'] * PROFILED_STEPS} graph nodes replayed, and "
+              f"{3 * PROFILED_STEPS} output copies); K2 {prof_k2} "
+              f"kernels recorded of {k2_nodes * PROFILED_STEPS}, {graph_k2_us / 1e3:.3f} ms "
+              f"({k2_each_ms:.4f} ms each, "
+              f"{100 * graph_k2_us / busy_us:.1f} % of the busy time)", flush=True)
+        for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"[episode]   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    # BASELINE config #1's literal shape: H=30, K=256
+    planner1 = planners.MPPI(env, planners.MPPIConfig(horizon=30, num_samples=256, sigma=0.6,
+                                                      temperature=0.3))
+    stats1 = {}
+    ep1 = planners.run_episode_device(env, planner1, seed=0, max_steps=EPISODE_STEPS,
+                                      stats=stats1)
+    print(f"[episode] PushCube-v1 device loop at BASELINE config #1 (H=30, K=256): "
+          f"{ep1['replan_hz']:.2f} control steps/s, success {ep1['success']} at step "
+          f"{ep1['steps']}, return {ep1['episode_return']:.4f}, graph of "
+          f"{stats1['graph_nodes']} nodes captured in {stats1['capture_s']:.2f} s", flush=True)
+    if not (np.isfinite(ep1["actions"]).all() and np.isfinite(ep1["episode_return"])):
+        fail("the config #1 device episode is not finite")
+    return dict(launches=dev_launches, graph_launches=graph_launches,
+                graph_k2_ms_each=k2_each_ms, graph_busy_ms_per_replay=busy_ms_per_replay,
+                episode_first_action_err=err0,
+                episode_replan_hz=dev["replan_hz"], host_replan_hz=host["replan_hz"],
+                graph_nodes=stats["graph_nodes"], capture_s=stats["capture_s"])
 
 
 def cem_ilqr_phase(mtt, planners):
@@ -1369,6 +1589,15 @@ def main():
                         contact_cmd="own")
     roll = kernel_phase(mtt, engine, megakernel, "RollBall-v1", roll_branches, contact_cmd="own")
     torch.cuda.empty_cache()
+    # the rest of the BASELINE MPC set: PushCube (its cube held as
+    # PickCube's), PokeCube (two free bodies: peg-cube box_box) and
+    # PegInsertionSide (a peg sized per env through geom_size, in a hole of
+    # four kinematic walls); the held pegs under their own command
+    push = kernel_phase(mtt, engine, megakernel, "PushCube-v1", pickcube_branches)
+    poke = kernel_phase(mtt, engine, megakernel, "PokeCube-v1", poke_branches, contact_cmd="own")
+    peg = kernel_phase(mtt, engine, megakernel, "PegInsertionSide-v1", peg_branches,
+                       contact_cmd="own")
+    torch.cuda.empty_cache()
     # hulls against capsules: the Allegro hand holding a hull per env
     # (capsule_hull, plane_capsule; nq 16); spheres and hulls against
     # hulls: the hull stack (sphere_hull, hull_hull)
@@ -1434,6 +1663,19 @@ def main():
     hopper |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
                          "MS-HopperStand-v1", 14)
 
+    # ---- 5f. the rest of the BASELINE MPC set: PegInsertionSide MPPI at
+    # config #4 (H=80, K=16384), PokeCube MPPI at its planner config, and
+    # PushCube episodes: the device loop (one CUDA graph a control step)
+    # against the host loop ----
+    torch.cuda.empty_cache()
+    # the bound from every 20th launch of the warm-up solve (rollout steps
+    # 0, 20, 40, 60): megakernel.work at K=16384 takes seconds a launch
+    peg |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
+                      "PegInsertionSide-v1", 43, bound_every=20)
+    torch.cuda.empty_cache()
+    poke |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PokeCube-v1", 42)
+    push |= episode_phase(mtt, planners)
+
     # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
 
@@ -1453,7 +1695,10 @@ def main():
                                             "slice_bytes", "envs_per_sm",
                                             "stack_slice_bytes", "stack_envs_per_sm",
                                             "ragged_max_abs_err", "limit_band_share",
-                                            "max_err_held")
+                                            "max_err_held", "episode_first_action_err",
+                                            "episode_replan_hz", "host_replan_hz",
+                                            "graph_nodes", "capture_s", "graph_launches",
+                                            "graph_k2_ms_each", "graph_busy_ms_per_replay")
                     if k in numbers}
 
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
@@ -1467,6 +1712,14 @@ def main():
         entry("megakernel_step", k2_src, k2_tpu, ycb) | {"inputs": f"PickSingleYCB-v1, K={K_YCB}"},
         entry("megakernel_step", k2_src, k2_tpu, plug) | {"inputs": f"PlugCharger-v1, K={K_CHECK}"},
         entry("megakernel_step", k2_src, k2_tpu, roll) | {"inputs": f"RollBall-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, push)
+        | {"inputs": f"PushCube-v1, K={K_CHECK}; launches: the device episode's K2 wrapper "
+                     f"calls (warm-up and capture), H=20, K=2048; graph_launches: the graph's "
+                     f"K2 kernel nodes times its {EPISODE_STEPS} replays; graph_*_ms: a "
+                     f"profile of {PROFILED_STEPS} replays of a second episode"},
+        entry("megakernel_step", k2_src, k2_tpu, poke) | {"inputs": f"PokeCube-v1, K={K_CHECK}"},
+        entry("megakernel_step", k2_src, k2_tpu, peg)
+        | {"inputs": f"PegInsertionSide-v1, K={K_CHECK}; path_*: MPPI H=80, K=16384"},
         entry("megakernel_step", k2_src, k2_tpu, inhand)
         | {"inputs": f"RotateSingleObjectInHandLevel2-v1, K={K_CHECK}; stack_*: the hull stack "
                      f"(sphere_hull, hull_hull), K={K_CHECK}"},

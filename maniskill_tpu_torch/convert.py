@@ -8,7 +8,8 @@ this module imports no JAX. The per-env convex-hull tables (``hull_verts``,
 the rest of ``SimState``, so each env keeps its own objects; so do kinematic poses (RollBall's goal region) and task
 extras (RollBall's ``reached`` latch; TurnFaucet's ``init_angle`` and
 ``target_angle``; the ``model_id``, ``target_qpos`` and ``target_link`` of
-the per-env container and cabinet models). A scene with articulated
+the per-env container and cabinet models; PegInsertionSide's
+``peg_half_size``, beside the peg's row of ``geom_size``). A scene with articulated
 objects carries its forest's dofs in ``qpos``/``qvel`` after the robot's,
 and a robot-only scene's free-body fields are (K, 0, ...). Fields the port does not model (the per-env PRNG key) are
 ignored on the way in and absent on the way out. A JAX ``CEMState`` arrives as its mean and sigma; its PRNG key is

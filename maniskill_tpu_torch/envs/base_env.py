@@ -195,6 +195,11 @@ class BaseEnv:
     def _get_obs_extra(self, state: EnvState, ctx: TaskContext, info) -> Dict:
         return {}
 
+    def _default_extras(self, batch: int) -> Dict[str, torch.Tensor]:
+        """Zero-valued extras of ``batch`` envs, before ``_initialize_episode``
+        (so that reset and step give extras of one structure)."""
+        return {}
+
     def _update_extras(self, state: EnvState, ctx: TaskContext) -> EnvState:
         """Per-step task bookkeeping, after physics and before evaluate."""
         return state
@@ -204,6 +209,14 @@ class BaseEnv:
 
     def compute_normalized_dense_reward(self, state, action, info, ctx):
         return self.compute_dense_reward(state, action, info, ctx)
+
+    def _uniform(self, gen: torch.Generator, shape, lo, hi) -> torch.Tensor:
+        """Draws from U[lo, hi) of ``shape`` with ``gen``; ``lo`` and ``hi``
+        are numbers, tensors or per-column sequences."""
+        if isinstance(lo, (list, tuple)):
+            lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
+            hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
 
     # -- functional core (batched) -----------------------------------------
     def _build_physics_dispatch(self):
@@ -239,7 +252,7 @@ class BaseEnv:
             sim=sim,
             cmd=DriveCmd(target_qpos=sim.qpos, target_qvel=zeros, qf=zeros),
             elapsed_steps=torch.zeros(K, dtype=torch.int32, device=self.device),
-            extras={},
+            extras=self._default_extras(K),
         )
         state = self._initialize_episode(state, gen)
         state = state.replace(cmd=self.agent.controller.reset(state.sim.qpos))

@@ -41,10 +41,6 @@ from ..scene_builders import TableSceneBuilder
 from .pick_cube import box_corners, grasp_qpos, pose_ik
 
 
-def _uniform(env, gen, shape, lo, hi):
-    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=env.device)
-
-
 def cabinet_prior(h: int) -> np.ndarray:
     """The cabinet's approach prior (H, 13), the JAX package's
     ``tools/solve_tasks.py:22-30``: the base forward at half speed, the
@@ -198,13 +194,13 @@ class OpenCabinetDrawerEnv(BaseEnv):
         i = self._drawer_body
         press = torch.arange(K, device=dev) % 4 != 3
         qpos = sim.qpos.clone()
-        qpos[:, names.index("root_x_axis_joint")] += _uniform(self, gen, (K,), 0.3, 0.4)
+        qpos[:, names.index("root_x_axis_joint")] += self._uniform(gen, (K,), 0.3, 0.4)
         qpos[:, names.index("torso_lift_joint")] = 0.0
         qpos[:, grip] = 0.0
-        q0 = _uniform(self, gen, (K,), 0.03, 0.15)
+        q0 = self._uniform(gen, (K,), 0.03, 0.15)
         side = torch.where(torch.rand((K,), generator=gen, device=dev) < 0.5, -1.0, 1.0)
-        y = side * _uniform(self, gen, (K,), 0.08, 0.12)
-        z = self.drawer_z + _uniform(self, gen, (K,), -0.02, 0.02)
+        y = side * self._uniform(gen, (K,), 0.08, 0.12)
+        z = self.drawer_z + self._uniform(gen, (K,), -0.02, 0.02)
         p_goal = torch.stack([-0.12 - q0 - 0.05, y, z], dim=-1)
         # the gripper's x axis (its approach) along +x, its y axis (the
         # fingers' closing axis) along z: a quarter turn about x
@@ -217,14 +213,14 @@ class OpenCabinetDrawerEnv(BaseEnv):
         tip_x = box_corners(self.model, qpos, fingers)[..., 0].amax(dim=1)
         # the front face is at x = -0.12 - q: a corner at tip_x lies
         # tip_x + 0.12 + q inside it
-        depth = _uniform(self, gen, (K,), 0.0, 1.5e-3)
+        depth = self._uniform(gen, (K,), 0.0, 1.5e-3)
         q_open = depth - 0.12 - tip_x
         qpos = torch.where(press[:, None], qpos, sim.qpos)
         qpos[:, i] = torch.where(press, q_open,
-                                 self.drawer_travel + _uniform(self, gen, (K,), 0.0, 0.01))
+                                 self.drawer_travel + self._uniform(gen, (K,), 0.0, 0.01))
         qvel = torch.zeros_like(qpos)
         qvel[:, arm] = 0.1 * torch.randn((K, len(arm)), generator=gen, device=dev)
-        qvel[:, i] = torch.where(press, 0.0, _uniform(self, gen, (K,), 0.0, 0.05))
+        qvel[:, i] = torch.where(press, 0.0, self._uniform(gen, (K,), 0.0, 0.05))
         sim = sim.replace(qpos=qpos, qvel=qvel)
         target = pose_ik(self, qpos, p_goal + torch.tensor([0.002, 0.0, 0.0], device=dev),
                          q_goal, joints=arm, iters=10)
@@ -279,7 +275,7 @@ class TurnFaucetEnv(BaseEnv):
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K = state.sim.qpos.shape[0]
         i = self._handle_body
-        q0 = _uniform(self, gen, (K,), -0.3, 0.3)
+        q0 = self._uniform(gen, (K,), -0.3, 0.3)
         qpos, qvel = state.sim.qpos.clone(), state.sim.qvel.clone()
         qpos[:, i] = q0
         qvel[:, i] = 0.0
@@ -334,23 +330,23 @@ class TurnFaucetEnv(BaseEnv):
         i = self._handle_body
         q = sim.qpos[:, i]
         grasp = torch.arange(K, device=dev) % 4 != 3
-        r = self.handle_len * _uniform(self, gen, (K,), 0.35, 0.75) + 0.02
+        r = self.handle_len * self._uniform(gen, (K,), 0.35, 0.75) + 0.02
         # the grasp point on the lever; the fourth group 1-3 cm beside it
         # (the -y side of the lever, which a positive turn sweeps toward)
-        off = torch.where(grasp, 0.0, -(0.012 + _uniform(self, gen, (K,), 0.01, 0.03)))
+        off = torch.where(grasp, 0.0, -(0.012 + self._uniform(gen, (K,), 0.01, 0.03)))
         pos = torch.stack([r * torch.cos(q) - off * torch.sin(q),
                            r * torch.sin(q) + off * torch.cos(q),
                            torch.full_like(q, self.column_h)], dim=-1)
         ez = torch.zeros(K, 3, device=dev)
         ez[:, 2] = 1.0
         pose = torch.cat([pos, quat_from_axis_angle(ez, q)], dim=-1)
-        dz = _uniform(self, gen, (K,), -1.5e-3, 1.5e-3)
+        dz = self._uniform(gen, (K,), -1.5e-3, 1.5e-3)
         qpos = grasp_qpos(self, sim.qpos, pose, gen, dz=dz)
-        qpos[:, 7:9] = torch.where(grasp, 0.012 - _uniform(self, gen, (K,), 0.0, 0.001),
+        qpos[:, 7:9] = torch.where(grasp, 0.012 - self._uniform(gen, (K,), 0.0, 0.001),
                                    torch.full((K,), 0.012, device=dev))[:, None]
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
         qvel[:, 7:9] = 0.0
-        qvel[:, i] = torch.where(grasp, 0.0, -_uniform(self, gen, (K,), 0.5, 1.0))
+        qvel[:, i] = torch.where(grasp, 0.0, -self._uniform(gen, (K,), 0.5, 1.0))
         sim = sim.replace(qpos=qpos, qvel=qvel)
         target = qpos.clone()
         target[:, 7:9] = 0.0  # the arm holds its pose, the gripper shuts

@@ -51,16 +51,12 @@ class CartpoleEnv(BaseEnv):
         return upright * centered * small_control * small_velocity
 
 
-def _uniform(gen, shape, lo, hi, device):
-    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
-
-
 @register_env("MS-CartpoleBalance-v1", max_episode_steps=1000)
 class CartpoleBalanceEnv(CartpoleEnv):
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K, dev = state.sim.qpos.shape[0], self.device
-        qpos = torch.stack([_uniform(gen, (K,), -0.1, 0.1, dev),
-                            _uniform(gen, (K,), -0.034, 0.034, dev)], dim=-1)
+        qpos = torch.stack([self._uniform(gen, (K,), -0.1, 0.1),
+                            self._uniform(gen, (K,), -0.034, 0.034)], dim=-1)
         qvel = 0.01 * torch.randn((K, 2), generator=gen, device=dev)
         return state.replace(sim=state.sim.replace(qpos=qpos, qvel=qvel))
 

@@ -85,10 +85,6 @@ class HumanoidRobot(_MJCFAgent):
     keyframes = {"rest": Keyframe(qpos=np.zeros(27, np.float32))}
 
 
-def _uniform(env, gen, shape, lo, hi):
-    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=env.device)
-
-
 class _ControlEnv(BaseEnv):
     """Shared locomotion scaffolding: the floor from the MJCF world, the
     whole robot's COM velocity, link heights."""
@@ -182,11 +178,11 @@ class _HopperEnv(_ControlEnv):
         rotation joint in (-pi/6, pi/6), the root slides at 0."""
         K, nq = state.sim.qpos.shape
         qlim = const(self.model, "robot_qlim", self.model.robot_qlim, self.device)
-        u = _uniform(self, gen, (K, nq), 0.0, 1.0)
+        u = self._uniform(gen, (K, nq), 0.0, 1.0)
         q = qlim[:, 0] + u * (qlim[:, 1] - qlim[:, 0])
         q[:, 0] = 0.0
         q[:, 1] = 0.0
-        q[:, 2] = _uniform(self, gen, (K,), -math.pi / 6, math.pi / 6)
+        q[:, 2] = self._uniform(gen, (K,), -math.pi / 6, math.pi / 6)
         return state.replace(sim=state.sim.replace(qpos=q, qvel=torch.zeros_like(q)))
 
     def _height(self, ctx):
@@ -218,8 +214,8 @@ def _near_zero_pose(env, state, gen, inset, root_z):
     """Joints at 0 clipped ``inset`` inside their limits, plus U(-1e-2,
     1e-2) in qpos and qvel, the root's z slide at ``root_z``."""
     K, nq = state.sim.qpos.shape
-    dq = _uniform(env, gen, (K, nq), -1e-2, 1e-2)
-    dv = _uniform(env, gen, (K, nq), -1e-2, 1e-2)
+    dq = env._uniform(gen, (K, nq), -1e-2, 1e-2)
+    dv = env._uniform(gen, (K, nq), -1e-2, 1e-2)
     qlim = const(env.model, "robot_qlim", env.model.robot_qlim, env.device)
     q = torch.clamp(torch.zeros(nq, device=env.device), qlim[:, 0] + inset,
                     qlim[:, 1] - inset) + dq

@@ -74,9 +74,6 @@ class FoldSuitcaseEnv(BaseEnv):
                                 2 * self.base_half[2]], np.float32)
         self.target_qpos = self.max_close_frac * self.lid_qmax
 
-    def _uniform(self, gen, shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
-
     def _set_lid(self, state: EnvState, q0: torch.Tensor) -> EnvState:
         i = self._lid_body
         qpos, qvel = state.sim.qpos.clone(), state.sim.qvel.clone()

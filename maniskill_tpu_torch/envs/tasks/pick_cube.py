@@ -133,17 +133,14 @@ class PickCubeEnv(BaseEnv):
         dev = self.device
         half = self.cube_half_size
 
-        def uniform(shape, lo, hi):
-            return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
-
-        xy = uniform((K, 2), -0.1, 0.1)
-        yaw = uniform((K,), -math.pi, math.pi)
+        xy = self._uniform(gen, (K, 2), -0.1, 0.1)
+        yaw = self._uniform(gen, (K,), -math.pi, math.pi)
         ez = torch.zeros(K, 3, device=dev)
         ez[:, 2] = 1.0
         q = quat_from_axis_angle(ez, yaw)
         cube_pose = torch.cat([xy, torch.full((K, 1), half, device=dev), q], dim=-1)
-        goal_xy = uniform((K, 2), -0.1, 0.1)
-        goal_z = uniform((K, 1), 0.0, 0.3) + half
+        goal_xy = self._uniform(gen, (K, 2), -0.1, 0.1)
+        goal_z = self._uniform(gen, (K, 1), 0.0, 0.3) + half
         goal_q = torch.zeros(K, 4, device=dev)
         goal_q[:, 0] = 1.0
         goal_pose = torch.cat([goal_xy, goal_z, goal_q], dim=-1)
@@ -174,14 +171,11 @@ class PickCubeEnv(BaseEnv):
         sim = state.sim
         K = sim.qpos.shape[0]
 
-        def uniform(shape, lo, hi):
-            return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
-
         half = sim.geom_size[:, self.model.geom_indices("cube")[0]]  # (K, 3)
         pose = sim.free_pose[:, self.cube]
         qpos = grasp_qpos(self, sim.qpos, pose, gen)
         width = _closing_half(pose, half)
-        qpos[:, 7:9] = uniform((K, 1), width - 0.001, width)
+        qpos[:, 7:9] = self._uniform(gen, (K, 1), width - 0.001, width)
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
         free_vel = sim.free_vel.clone()
         free_vel[:, self.cube] = 0.05 * torch.randn(

@@ -97,9 +97,6 @@ class PlugChargerEnv(BaseEnv):
         gx = self._recep_pose[0] - self._receptacle_size[0] - self._base_size[0]
         self._goal_pose = np.array([gx, 0.0, self._recep_pose[2], 1, 0, 0, 0], np.float32)
 
-    def _uniform(self, gen, shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
-
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K = state.sim.qpos.shape[0]
         dev = self.device

@@ -69,9 +69,6 @@ class RotateCubeInHandAllegroEnv(BaseEnv):
     def _post_build(self):
         self._geom = self.model.geom_indices("cube")[0]
 
-    def _uniform(self, gen, shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
-
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K = state.sim.qpos.shape[0]
         dev = self.device

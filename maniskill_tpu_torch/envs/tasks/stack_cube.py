@@ -49,9 +49,6 @@ class StackCubeEnv(BaseEnv):
     def _post_build(self):
         self._is_grasping_A = self.agent.build_grasp_checker(self.model, "cubeA", self.device)
 
-    def _uniform(self, gen, shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
-
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K = state.sim.qpos.shape[0]
         dev = self.device

@@ -13,8 +13,6 @@ same JAX module are not ported yet.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -52,11 +50,6 @@ class RollBallEnv(BaseEnv):
         # contact_state's support: the left finger's pad (its second box)
         self._pad = [i for i, g in enumerate(self.model.geoms)
                      if g.name == "robot:panda_leftfinger"][1]
-
-    def _uniform(self, gen, shape, lo, hi):
-        lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
-        hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
 
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         K = state.sim.qpos.shape[0]

@@ -20,6 +20,11 @@ class Pose:
         """From the 7-dim raw pose ``[p, q]``."""
         return Pose(raw[..., :3], raw[..., 3:7])
 
+    @staticmethod
+    def translation(p: torch.Tensor) -> "Pose":
+        """The pose translating by ``p`` (..., 3) (JAX ``Pose.create(p=p)``)."""
+        return Pose(p, torch.cat([torch.ones_like(p[..., :1]), torch.zeros_like(p)], dim=-1))
+
     @property
     def raw(self) -> torch.Tensor:
         return torch.cat([self.p, self.q], dim=-1)

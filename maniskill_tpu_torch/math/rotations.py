@@ -73,6 +73,24 @@ def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tenso
     return torch.cat([torch.cos(half)[..., None], xyz], dim=-1)
 
 
+def quat_from_euler(rpy: torch.Tensor) -> torch.Tensor:
+    """(roll, pitch, yaw) Euler angles (..., 3) -> quaternion, the URDF
+    ``<origin rpy>`` convention: R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    r, p, y = rpy.unbind(-1)
+    cr, sr = torch.cos(r * 0.5), torch.sin(r * 0.5)
+    cp, sp = torch.cos(p * 0.5), torch.sin(p * 0.5)
+    cy, sy = torch.cos(y * 0.5), torch.sin(y * 0.5)
+    return torch.stack(
+        [
+            cy * cp * cr + sy * sp * sr,
+            cy * cp * sr - sy * sp * cr,
+            cy * sp * cr + sy * cp * sr,
+            sy * cp * cr - cy * sp * sr,
+        ],
+        dim=-1,
+    )
+
+
 def quat_exp(w: torch.Tensor) -> torch.Tensor:
     """Rotation vector (..., 3) -> quaternion; the 1e-18 keeps it finite at 0."""
     sq = torch.sum(w * w, dim=-1, keepdim=True)

@@ -450,12 +450,14 @@ def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
     env-major: the row plan's R_in floats, then zeros to W_in."""
     K = state.qpos.shape[0]
     model = plan.model
+    dev = state.qpos.device
 
-    def gains(x, arr):
-        return x if x is not None else torch.as_tensor(
-            arr, device=state.qpos.device).expand(K, -1)
+    # index and gain tables as cached device tensors: no host copy per call,
+    # so the pack can be captured in a CUDA graph
+    def gains(x, key, arr):
+        return x if x is not None else const(plan, key, arr, dev).expand(K, -1)
 
-    iu = ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])
+    iu = const(plan, "inertia_upper", [[0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]], dev, torch.long)
     parts = [
         state.qpos, state.qvel,
         state.free_pose.reshape(K, -1), state.free_vel.reshape(K, -1),
@@ -466,8 +468,8 @@ def pack(plan: _Plan, state: SimState, cmd: DriveCmd) -> torch.Tensor:
         state.contact_lam,
         state.contact_lam_t.transpose(1, 2).reshape(K, -1),
         cmd.target_qpos, cmd.target_qvel, cmd.qf,
-        gains(cmd.kp, model.drive_kp), gains(cmd.kd, model.drive_kd),
-        gains(cmd.force_limit, model.drive_force_limit),
+        gains(cmd.kp, "drive_kp", model.drive_kp), gains(cmd.kd, "drive_kd", model.drive_kd),
+        gains(cmd.force_limit, "drive_force_limit", model.drive_force_limit),
     ]
     if plan.n_hull > 0:
         parts += [state.hull_verts.reshape(K, -1), state.hull_faces.reshape(K, -1)]

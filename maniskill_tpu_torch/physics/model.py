@@ -85,18 +85,27 @@ class SimParams:
     max_ang_vel: float = 50.0
 
 
-def tree_map(fn: Callable, obj):
-    """Apply ``fn`` to every tensor in a nest of dataclasses and dicts
-    (``None`` fields stay ``None``)."""
+def tree_map(fn: Callable, obj, *rest):
+    """Apply ``fn`` to every tensor in a nest of dataclasses and dicts, or
+    to the matching tensors of several nests of one structure, as
+    ``fn(leaf, *leaves)`` (dict entries matched by key; ``None`` fields stay
+    ``None``, other leaves are taken from ``obj``). Nests that differ in
+    their keys, their fields or where a field is ``None`` raise."""
     if obj is None:
+        if any(o is not None for o in rest):
+            raise ValueError("a field is None in one nest only")
         return None
     if isinstance(obj, torch.Tensor):
-        return fn(obj)
+        return fn(obj, *rest)
     if isinstance(obj, dict):
-        return {k: tree_map(fn, v) for k, v in obj.items()}
+        if any(not isinstance(o, dict) or o.keys() != obj.keys() for o in rest):
+            raise ValueError(f"dicts with other keys than {sorted(obj)}")
+        return {k: tree_map(fn, v, *(o[k] for o in rest)) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj):
+        if any(type(o) is not type(obj) for o in rest):
+            raise ValueError(f"nests of other types than {type(obj).__name__}")
         return dataclasses.replace(obj, **{
-            f.name: tree_map(fn, getattr(obj, f.name))
+            f.name: tree_map(fn, getattr(obj, f.name), *(getattr(o, f.name) for o in rest))
             for f in dataclasses.fields(obj)})
     return obj
 

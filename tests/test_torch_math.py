@@ -58,6 +58,16 @@ def test_rotations_match_jax():
     np.testing.assert_allclose(a.inv().raw.numpy(), np.asarray(ja.inv().raw), atol=2e-6)
 
 
+def test_quat_from_euler_matches_jax():
+    """Euler angles over several turns, and the quarter turns
+    LiftPegUpright's reset takes, to quaternions (tolerance 2e-6)."""
+    rng = np.random.default_rng(3)
+    rpy = rng.uniform(-7, 7, (64, 3)).astype(np.float32)
+    rpy[:4] = np.float32([[np.pi / 2, 0, 0], [0, np.pi / 2, 0], [0, 0, -np.pi / 2], [0, 0, 0]])
+    np.testing.assert_allclose(trot.quat_from_euler(torch.as_tensor(rpy)).numpy(),
+                               np.asarray(jrot.quat_from_euler(rpy)), atol=2e-6)
+
+
 def test_urdf_copy_and_fk_match_jax():
     spec, jspec = parse_urdf(PANDA_URDF), jparse(PANDA_URDF)
     for name in ("parent", "joint_type", "joint_pos", "joint_quat", "axis", "mass",

@@ -729,6 +729,59 @@ def test_round_kernel_matches_plain(task, states):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_peg_kernel_matches_plain(states):
+    """PegInsertionSide-v1 (a peg sized per env through ``geom_size``, a
+    kinematic box of four wall geoms) through the CUDA kernel against the
+    plain step on the card, K=64: from reset states with the targets moved
+    (every env within the tolerances), or from ``contact_state`` states
+    under their own command (the held peg's head in the hole), refereed by
+    a float64 plain step as in ``test_round_kernel_matches_plain``; in
+    contact the peg-wall points carry force in half the envs or more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make("PegInsertionSide-v1", num_envs=64, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st = cenv._state
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, 5, states == "reset", 64)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        plan, walls = cenv.kernel.plan, cenv.model.geom_indices("box_with_hole")
+        wall = np.isin(plan.pga, walls) | np.isin(plan.pgb, walls)
+        assert loaded[:, wall].any(1).mean() >= 0.5
+
+
+@pytest.mark.cuda
+def test_pushcube_control_step_replays_as_a_cuda_graph():
+    """PushCube-v1's control step (an MPPI solve, K=64, H=3, with its noise
+    draw; the env step through K2; the freeze) captured as one CUDA graph
+    and replayed 3 times by ``run_episode_device`` equals the eager host
+    loop (``run_episode``) from the same seed within 1e-4. K2's wrapper
+    counts the warm-up step and the capture, H + 1 calls each (the
+    rollouts' and the env step's), and the graph holds H + 1 K2 kernel
+    nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from maniskill_tpu_torch.planners import MPPI, MPPIConfig, run_episode, run_episode_device
+
+    cenv = mtt.make("PushCube-v1", num_envs=1, obs_mode="none", reward_mode="dense",
+                    device="cuda")
+    planner = MPPI(cenv, MPPIConfig(horizon=3, num_samples=64, sigma=0.6, temperature=0.3))
+    stats = {}
+    dev = run_episode_device(cenv, planner, seed=0, max_steps=3, stats=stats)
+    assert cenv.kernel.launches == 2 * 4
+    assert sum(c for name, c in stats["graph_kernels"].items() if "mk_kernel" in name) == 4
+    host = run_episode(cenv, planner, seed=0, max_steps=3, stop_on_success=False)
+    assert not dev["success"]
+    np.testing.assert_allclose(dev["actions"], host["actions"], atol=1e-4)
+    np.testing.assert_allclose(dev["rewards"], host["rewards"], atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_round_scene_kernel_matches_plain():
     """The scene of ``round_scene`` (box_sphere, sphere_sphere,
     sphere_capsule and capsule_capsule in contact) through the CUDA kernel
@@ -968,12 +1021,13 @@ def test_slice_follows_a_hand_count(task, floats):
     assert plan.slice_floats() == floats and floats % 4 == 0
 
 
-_IDS = ["FoldSuitcase-v1", "FoldSuitcaseModels-v1", "MS-AntRun-v1", "MS-AntWalk-v1",
-        "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1",
+_IDS = ["FoldSuitcase-v1", "FoldSuitcaseModels-v1", "LiftPegUpright-v1", "MS-AntRun-v1",
+        "MS-AntWalk-v1", "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1",
         "MS-HopperStand-v1", "MS-HumanoidRun-v1", "MS-HumanoidStand-v1",
         "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1",
-        "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1",
-        "PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "RollBall-v1",
+        "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1",
+        "PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "PokeCube-v1",
+        "PullCube-v1", "PushCube-v1", "PushCubeKitchen-v1", "RollBall-v1",
         "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
         "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TurnFaucet-v1"]
