@@ -64,11 +64,11 @@ Phases (each passes or ends the script with a non-zero exit):
      plain-step derivative) against those of the plain step, K=64;
   4. drive the port's PickCube main path: ``make("PickCube-v1")``,
      ``reset``, then MPPI at H=50, K=4096 (sigma 0.6, temperature 0.3): one
-     warm-up solve and 5 timed solves, with K2's launch count read around
+     warm-up solve and 3 timed solves, with K2's launch count read around
      them;
   5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
      K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
-     0.1): one warm-up solve and 5 timed solves, 50 kernel launches each;
+     0.1): one warm-up solve and 3 timed solves, 50 kernel launches each;
      then the PlugCharger-v1, RollBall-v1 and
      RotateSingleObjectInHandLevel2-v1 paths at the bench shape (H=50,
      K=4096, sigma 0.6, temperature 0.3) the same way; then the
@@ -97,8 +97,8 @@ Phases (each passes or ends the script with a non-zero exit):
      BASELINE config #1's literal shape (H=30, K=256);
   6. drive the StackCube path: ``make("StackCube-v1")``, ``reset``, then
      CEM + iLQR at BASELINE config #3 (CEM H=60, K=1024, 64 elites, 4
-     iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 2
-     timed plan steps, split into CEM and iLQR (and iLQR into its rollouts,
+     iterations, sigma 0.5; iLQR H=60, 3 iterations): one warm-up and 1
+     timed plan step, split into CEM and iLQR (and iLQR into its rollouts,
      linearizations and line searches), K2's launches per plan step
      checked against the design, then one env step with the planned action;
   7. hold K1 against its plain version (n = 1, 9, 15, 21, 27, 32; K =
@@ -107,10 +107,27 @@ Phases (each passes or ends the script with a non-zero exit):
      time) beside its entry point and the library call at n = 9, 15, 21,
      27 and K = 4096, 16384, 65536, and its plain version at K = 4096, and
      drive its entry point once;
-  8. print one JSON line of the kernels (launches on their paths, time per
+  8. the Panda's control modes on PickCube-v1 at K=4096 (``[modes]``):
+     one control step of each of the eight modes' controllers from reset
+     and contact states through K2 against the plain step, and one
+     ``env.step`` each through the entry point (K2 launched once, K1 once
+     under a task-space mode); the task-space IK path (``[ee]``): K1 on
+     the controller's own IK systems (n = 6 under pd_ee_delta_pose, n = 3
+     under pd_ee_delta_pos) against its plain version, the targets through
+     K1 against those through the plain version, K1's time beside the
+     plain version's and the library call's, one rollout step under
+     ``set_sync_debug_mode("error")``, and PickCube MPPI at the bench shape
+     under each EE mode (50 K1 and 50 K2 launches a solve); the scripted
+     solutions (``[solutions]``): PullCubeTool-v1's K2 check and slice,
+     every ported solution at B=1024 on K2 (success rate, env steps/s, one
+     K2 and one K1 launch a control step, final states finite), and
+     PickCube-v1 and FoldSuitcase-v1 at B=256 on K2 and on the plain step,
+     whose success rates must agree;
+  9. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
-     ``{"ok": true, "device": {...}}``.
+     ``{"ok": true, "device": {...}}``. ``[lap]`` lines give each phase's
+     seconds.
 Needs one CUDA device; exits non-zero without one or outside the repo.
 """
 import dataclasses
@@ -122,24 +139,27 @@ import sys
 import time
 
 K_CHECK = 4096
-TIMED_SOLVES = 5
+# timed MPPI solves a path, after one warm-up (5 until PR 11; cut to keep
+# the whole run within its time limit as phases are added)
+TIMED_SOLVES = 3
 # PickSingleYCB-v1 MPPI, BASELINE config #5 (the JAX package's
 # tools/solve_tasks.py:90-94)
 K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
 # StackCube CEM + iLQR (BASELINE config #3, the JAX package's
 # tools/solve_tasks.py:80-84)
 H_PLAN, K_CEM, ELITES, CEM_ITERS, ILQR_ITERS = 60, 1024, 64, 4, 3
-TIMED_PLANS = 2
+TIMED_PLANS = 1  # timed CEM + iLQR plan steps after one warm-up (2 until PR 11)
 K_SEAM = 64
 # PushCube-v1 episodes: control steps, and how far the device loop's first
 # action may be from the host loop's (one program, the same draws)
 EPISODE_STEPS, EPISODE_TOL = 50, 1e-4
 # replays of the profiled device episode (a replay is ~11,300 device ops)
 PROFILED_STEPS = 10
-# the MPPI paths' bound counts every 5th launch of the warm-up solve
-# (rollout steps 0, 5, ..., 45): megakernel.work reruns the plain step
-# substep by substep, about two plain steps a launch (PlugCharger 1.2 s)
-PATH_BOUND_EVERY = 5
+# the MPPI paths' bound counts every 10th launch of the warm-up solve
+# (rollout steps 0, 10, ..., 40; every 5th until PR 11): megakernel.work
+# reruns the plain step substep by substep, about two plain steps a launch
+# (PlugCharger 1.2 s)
+PATH_BOUND_EVERY = 10
 # kernel vs plain tolerances (tests/test_torch_pickcube.py, from
 # tests/test_megakernel.py:48-67): float32 on both sides, sums in another
 # order; contact impulses are newtons under a stiff implicit law
@@ -156,7 +176,10 @@ REFEREE_FACTOR = 3.0
 # same plain step, but the reward's are taken at the kernel's primal, which
 # differs from the plain step's by float32 rounding
 SEAM_REL_TOL = 1e-3
-K1_TOL = 1e-4  # A = X Xᵀ + n I, float32, n <= 32
+K1_TOL = 1e-4  # A = X Xᵀ + n I, float32, n <= 32; the IK systems of the EE modes
+# the scripted solutions: envs a solution runs on K2, and the envs of the
+# K2 / plain-step comparison of success rates
+K_SOL, K_SOL_AB = 1024, 256
 # K1 on non-PD systems (exact pivots): finite entries against the system's
 # largest |x|, and a diagonal system's entry by entry
 K1_REL_TOL = 1e-5
@@ -1130,7 +1153,7 @@ def seam_phase(mtt, ILQR, ILQRConfig):
 
 
 def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
-               bound_every=PATH_BOUND_EVERY, **overrides):
+               bound_every=PATH_BOUND_EVERY, control_mode=None, profile=True, **overrides):
     """Phases 4 and 5: MPPI on one task at its env class's ``MPPI_CONFIG``
     (``overrides``: MPPIConfig keyword arguments that replace it), one
     warm-up and TIMED_SOLVES timed solves, K2's launches counted and its
@@ -1140,10 +1163,17 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
     Returns the launches, the kernel's mean device time per launch in the
     timed solves, and the mean bound of a launch, counted by
     ``megakernel.work`` on the inputs of every ``bound_every``-th launch
-    of the warm-up solve (the rollouts' own states and commands)."""
+    of the warm-up solve (the rollouts' own states and commands).
+    ``control_mode``: the env's (default: its first); under a task-space
+    mode every rollout step's IK solve launches K1 once, counted and timed
+    by CUDA events like K2 (``k1_launches``, ``k1_path_ms``). ``profile``:
+    one more solve under torch.profiler (``profile_solve``)."""
     import torch
+    from maniskill_tpu_torch.physics import solve_kernel
 
-    env1 = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense")
+    env1 = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense",
+                    **({} if control_mode is None else dict(control_mode=control_mode)))
+    ik = env1.agent.controller.needs_fk_aux
     env1.reset(seed=0)
     cfg = dict(type(env1).MPPI_CONFIG, **overrides)
     H, num_samples = cfg["horizon"], cfg["num_samples"]
@@ -1160,11 +1190,13 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
         return step(sim, cmd, n_steps)
 
     kern.step = counted_step
-    env1.kernel.launches = 0
+    env1.kernel.launches = solve_kernel.launches = 0
     torch.cuda.synchronize()
     ps, info = planner.solve(ps, env1._state)
     torch.cuda.synchronize()
     del kern.step
+    if solve_kernel.launches != (H if ik else 0):
+        fail(f"warm-up solve launched K1 {solve_kernel.launches} times, not {H if ik else 0}")
     bytes_ms = statistics.mean(w[0] for w in path_work) / HBM_BYTES_PER_S * 1e3
     ops_ms = statistics.mean(w[1] for w in path_work) / FP32_OPS_PER_S * 1e3
     if env1.kernel.launches != H:
@@ -1182,17 +1214,35 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
         spans.append((a, b))
         return out
 
+    k1_spans, k1_launch = [], solve_kernel.launch
+
+    def timed_k1(A, b):
+        a0 = torch.cuda.Event(enable_timing=True)
+        b0 = torch.cuda.Event(enable_timing=True)
+        a0.record()
+        x = k1_launch(A, b)
+        b0.record()
+        k1_spans.append((a0, b0))
+        return x
+
     env1.kernel.launch = timed_launch
+    solve_kernel.launch = timed_k1
     t0 = time.perf_counter()
-    for _ in range(TIMED_SOLVES):
-        ps, info = planner.solve(ps, env1._state)
-    torch.cuda.synchronize()
+    try:
+        for _ in range(TIMED_SOLVES):
+            ps, info = planner.solve(ps, env1._state)
+        torch.cuda.synchronize()
+    finally:
+        solve_kernel.launch = k1_launch
     dt = time.perf_counter() - t0
     del env1.kernel.launch
     kernel_busy_ms = sum(a.elapsed_time(b) for a, b in spans)
-    launches = env1.kernel.launches
+    launches, k1_launches = env1.kernel.launches, solve_kernel.launches
     if launches != H * (TIMED_SOLVES + 1):
         fail(f"main path launched the kernel {launches} times, not {H * (TIMED_SOLVES + 1)}")
+    if k1_launches != (H * (TIMED_SOLVES + 1) if ik else 0):
+        fail(f"main path launched K1 {k1_launches} times, not "
+             f"{H * (TIMED_SOLVES + 1) if ik else 0}")
     returns = info["returns"]
     finite = float(torch.isfinite(returns).float().mean())
     if returns.shape != (num_samples,) or finite < min_finite:
@@ -1215,9 +1265,18 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
           f"the warm-up solve's inputs {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f} ms, "
           f"operations {ops_ms:.5f} ms, mean of {len(path_work)} launches: every "
           f"{bound_every}th of the warm-up solve's)", flush=True)
-    profile_solve(planner, ps, env1._state)
-    return dict(launches=launches, path_ms=kernel_busy_ms / len(spans),
-                path_bound_ms=max(bytes_ms, ops_ms))
+    out = dict(launches=launches, path_ms=kernel_busy_ms / len(spans),
+               path_bound_ms=max(bytes_ms, ops_ms), rps=rps)
+    if ik:
+        k1_ms = sum(a.elapsed_time(b) for a, b in k1_spans)
+        out |= dict(k1_launches=k1_launches, k1_path_ms=k1_ms / len(k1_spans))
+        print(f"[main] {task} {control_mode}: K1 launches {k1_launches} "
+              f"({k1_launches // (TIMED_SOLVES + 1)} per solve), device time "
+              f"{k1_ms / TIMED_SOLVES:.3f} ms/solve ({k1_ms / len(k1_spans):.4f} ms per launch, "
+              f"CUDA events), {100 * k1_ms / (dt * 1e3):.2f} % of the wall time", flush=True)
+    if profile:
+        profile_solve(planner, ps, env1._state)
+    return out
 
 
 def episode_phase(mtt, planners):
@@ -1533,6 +1592,282 @@ def solve_phase(linalg, solve_kernel):
     return out
 
 
+def _ik_aux(env, state):
+    """The FK ``aux`` that ``_advance`` hands a task-space controller."""
+    import torch
+    from maniskill_tpu_torch.envs.base_env import TaskContext
+
+    ctx = TaskContext(env, state)
+    base = torch.as_tensor(env.model.robot_base_pose, device="cuda")
+    return base, ctx.body_pos, ctx.body_quat, ctx.axis_w
+
+
+def time_k2(kern, megakernel, sim, cmd):
+    """(kernel ms, plain ms, bytes ms, operations ms) of one control step
+    (5 sim steps) of ``sim, cmd`` through K2 and its plain step."""
+    from maniskill_tpu_torch._cuda import event_ms
+
+    n_sub = 5 * kern.model.params.substeps
+    plane = megakernel.pack(kern.plan, sim, cmd)
+    kern.launch(plane, n_sub)
+    k_ms = event_ms(lambda: kern.launch(plane, n_sub), 20)
+    p_ms = event_ms(lambda: kern.plain(sim, cmd, 5), 5)
+    nbytes, ops, _ = megakernel.work(kern.plan, sim, cmd, n_sub)
+    return k_ms, p_ms, nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+
+
+def modes_phase(mtt, megakernel, solve_kernel):
+    """[modes]: PickCube-v1 at K_CHECK envs under each of the Panda's eight
+    control modes. One control step of the mode's controller (arm actions
+    of 0.3 at most in the normalized modes: 0.03 rad of delta, 3 cm and
+    0.03 rad of TCP motion, 0.3 rad/s; in the raw ones targets 0.03 rad at
+    most from the current arm position, as the delta modes', and raw
+    velocity targets of 0.3 rad/s at most: raw targets 0.3 rad off in a
+    grasp make both float32 steps leave a float64 step's tolerances in 8 %
+    of the contact envs, beyond the referee rule's share;
+    the gripper at random on reset states, shut on contact states) from
+    reset states (every env held in full) and from ``contact_state``
+    states (kernel_phase's contact rule) through K2 against the plain step
+    (``compare_step``); then one ``env.step`` through the entry point,
+    which must launch K2 once and, under a task-space mode, K1 once. The
+    kernels line's numbers: the largest error over the modes, and K2's
+    time and bound on the pd_ee_delta_pose contact step."""
+    import torch
+    from maniskill_tpu_torch.agents.robots.panda import Panda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    out = dict(max_err=0.0, launches=0)
+    for mode in Panda(device="cuda").supported_control_modes:
+        env = mtt.make("PickCube-v1", num_envs=K_CHECK, reward_mode="dense", control_mode=mode)
+        env.reset(seed=0)
+        kern, ctrl = env.kernel, env.agent.controller
+        arm_raw = not ctrl.controllers["arm"].normalize_action
+        st = env._state
+        cst = env.contact_state(st, gen)
+        actions = {}
+        for label, s in (("reset", st), ("contact", cst)):
+            a = 0.3 * (2 * torch.rand((K_CHECK, env.action_dim), generator=gen,
+                                      device="cuda") - 1)
+            if arm_raw:  # targets 0.03 rad at most from qpos, as the delta modes'
+                a[:, :7] = s.sim.qpos[:, :7] + 0.1 * a[:, :7]
+            if label == "contact":
+                a[:, -1] = -1.0
+            else:
+                a[:, -1] = 2 * torch.rand(K_CHECK, generator=gen, device="cuda") - 1
+            actions[label] = a
+            aux = _ik_aux(env, s) if ctrl.needs_fk_aux else None
+            cmd = ctrl.set_action(s.cmd, s.sim.qpos, a, aux=aux)
+            referee = torch.full((K_CHECK,), label == "contact", device="cuda")
+            err, _, _ = compare_step(kern, f"PickCube-v1 K={K_CHECK} {mode}", label, s.sim, cmd,
+                                     referee)
+            out["max_err"] = max(out["max_err"], err)
+            if mode == "pd_ee_delta_pose" and label == "contact":
+                k_ms, p_ms, bytes_ms, ops_ms = time_k2(kern, megakernel, s.sim, cmd)
+                out |= dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        # the entry point: one env step of the reset states, with their action
+        a = actions["reset"]
+        env._state = st
+        kern.launches = solve_kernel.launches = 0
+        obs, reward, *_ = env.step(a)
+        torch.cuda.synchronize()
+        want = (1, 1 if ctrl.needs_fk_aux else 0)
+        if (kern.launches, solve_kernel.launches) != want:
+            fail(f"[modes] {mode}: env.step launched K2 {kern.launches} and K1 "
+                 f"{solve_kernel.launches} times, not {want}")
+        if not (torch.isfinite(obs).all() and torch.isfinite(reward).all()):
+            fail(f"[modes] {mode}: env.step gave non-finite obs or reward")
+        out["launches"] += kern.launches
+        print(f"[modes] {mode}: action dim {env.action_dim}; env.step launched K2 "
+              f"{kern.launches}, K1 {solve_kernel.launches}", flush=True)
+        del env, st, cst
+    torch.cuda.empty_cache()
+    print(f"[modes] every mode within the tolerances: largest |kernel - plain| "
+          f"{out['max_err']:.3e}; K2 on the pd_ee_delta_pose contact step {out['ms']:.4f} "
+          f"ms/launch, plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms",
+          flush=True)
+    return out
+
+
+def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
+    """[ee]: the task-space modes on PickCube-v1. For pd_ee_delta_pose (n =
+    6) and pd_ee_delta_pos (n = 3): the IK systems of the controller on
+    K_CHECK reset states (its Jacobians, A = J Jᵀ + λ²I, a random action's
+    Δx) through K1 against its plain version within K1_TOL, and the
+    controller's targets through K1 against those through the plain
+    version within K1_TOL; K1's time on those systems (launches queued
+    back to back), its plain version's and the library call's
+    (``cholesky_ex`` + ``cholesky_solve``), its bound; one rollout step
+    under ``set_sync_debug_mode("error")`` (after one to warm the cached
+    tables): the IK path makes no host sync; then MPPI at the bench shape
+    (H=50, K=4096, sigma 0.6, temperature 0.3) with the mode's action
+    dims, K1 launched once a rollout step. Returns the kernels line's
+    numbers of K1 by n, and K2's MPPI path under pd_ee_delta_pose."""
+    import torch
+    from maniskill_tpu_torch._cuda import event_ms, queued_ms
+
+    def library(A, b):
+        L, _info = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    k1, k2 = {}, None
+    for mode, n in (("pd_ee_delta_pose", 6), ("pd_ee_delta_pos", 3)):
+        env = mtt.make("PickCube-v1", num_envs=K_CHECK, reward_mode="dense", control_mode=mode)
+        env.reset(seed=0)
+        st, ctrl = env._state, env.agent.controller
+        a = 2 * torch.rand((K_CHECK, env.action_dim), generator=gen, device="cuda") - 1
+        aux = _ik_aux(env, st)
+        systems, k1_solve = [], solve_kernel.solve_psd
+
+        def capture(A, b):
+            systems.append((A.contiguous(), b.contiguous()))
+            return k1_solve(A, b)
+
+        solve_kernel.solve_psd = capture
+        try:
+            cmd_k = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
+            solve_kernel.solve_psd = linalg.solve_psd
+            cmd_p = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
+        finally:
+            solve_kernel.solve_psd = k1_solve
+        A, b = systems[0]
+        if A.shape != (K_CHECK, n, n):
+            fail(f"[ee] {mode}: IK systems of shape {tuple(A.shape)}, not {(K_CHECK, n, n)}")
+        x_k, x_p = solve_kernel.launch(A, b), linalg.solve_psd(A, b)
+        torch.cuda.synchronize()
+        err = float((x_k - x_p).abs().max())
+        t_err = float((cmd_k.target_qpos - cmd_p.target_qpos).abs().max())
+        lib_err = float((library(A, b) - x_k).abs().max())
+        if not (err <= K1_TOL and t_err <= K1_TOL):
+            fail(f"[ee] {mode}: K1 against its plain version {err:.3e}, the targets "
+                 f"{t_err:.3e} (tol {K1_TOL:g})")
+        k_ms = queued_ms(lambda: solve_kernel.launch(A, b), 50)
+        p_ms = event_ms(lambda: linalg.solve_psd(A, b), 10)
+        l_ms = event_ms(lambda: library(A, b), 20)
+        nbytes, ops = solve_kernel.work(K_CHECK, n)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        diag = torch.diagonal(A, dim1=1, dim2=2)
+        print(f"[ee] {mode}: K1 on the controller's {K_CHECK} IK systems (n={n}, diagonal "
+              f"{float(diag.min()):.4f} to {float(diag.max()):.4f}): max |kernel - plain| "
+              f"{err:.3e}, targets {t_err:.3e} (tol {K1_TOL:g}); kernel {k_ms:.4f} ms "
+              f"(queued), plain {p_ms:.4f} ms, library {l_ms:.4f} ms (max |lib - kernel| "
+              f"{lib_err:.1e}), bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> "
+              f"{bytes_ms:.5f} ms, {ops:.0f} ops -> {ops_ms:.5f} ms)", flush=True)
+        # no host sync on the IK path: one rollout step under the sync check
+        env._rollout_step(st, a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st2, reward, _ = env._rollout_step(st, a)
+        except RuntimeError as e:
+            torch.cuda.set_sync_debug_mode(0)
+            fail(f"[ee] {mode}: the rollout step synchronized the host: {e}")
+        torch.cuda.set_sync_debug_mode(0)
+        if not (torch.isfinite(st2.sim.qpos).all() and torch.isfinite(reward).all()):
+            fail(f"[ee] {mode}: the rollout step gave non-finite state or reward")
+        print(f"[ee] {mode}: one rollout step of {K_CHECK} envs under "
+              f"set_sync_debug_mode('error'): no host sync", flush=True)
+        del env, st, st2, A, b, systems
+        torch.cuda.empty_cache()
+        path = mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42,
+                          control_mode=mode, bound_every=25, profile=n == 6)
+        print(f"[ee] PickCube-v1 {mode} MPPI at the bench shape: {path['rps']:.1f} rollouts/s, K2 "
+              f"{path['path_ms']:.4f} ms a launch, K1 (n={n}) {path['k1_path_ms']:.4f} ms a "
+              f"launch, {path['k1_launches'] // (TIMED_SOLVES + 1)} K1 launches a solve",
+              flush=True)
+        k1[n] = dict(launches=path["k1_launches"], max_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=l_ms, bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                     path_ms=path["k1_path_ms"])
+        if n == 6:
+            k2 = path
+    return k1, k2
+
+
+def solutions_phase(mtt, megakernel, solve_kernel):
+    """[solutions]: PullCubeTool-v1's K2 against the plain step on K_CHECK
+    reset states (every env held in full), its time, bound and slice; then
+    every ported scripted solution at K_SOL envs on K2 (seed 0, no reset
+    noise): the success rate, env steps/s (control steps x envs over the
+    synchronized wall), K2 and K1 launched once a control step, the final
+    states finite; then PickCube-v1 and FoldSuitcase-v1 at K_SOL_AB envs on
+    K2 and on the plain step (``sim_backend="torch"``), the same seed: the
+    success rates may differ by 3 binomial standard errors of the
+    difference plus 0.02. Returns the kernels line's numbers."""
+    import math
+
+    import torch
+    from maniskill_tpu_torch.examples.motionplanning.solutions import CONTROL_MODES, SOLUTIONS
+
+    env = mtt.make("PullCubeTool-v1", num_envs=K_CHECK, reward_mode="dense",
+                   control_mode="pd_ee_delta_pos")
+    env.reset(seed=0)
+    st, kern = env._state, env.kernel
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05 * torch.randn(
+        st.cmd.target_qpos.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+        device="cuda"))
+    task = f"PullCubeTool-v1 K={K_CHECK}"
+    err, _, _ = compare_step(kern, task, "reset", st.sim, cmd,
+                             torch.zeros(K_CHECK, dtype=torch.bool, device="cuda"))
+    out = dict(max_err=err) | occupancy_line(kern, task)
+    k_ms, p_ms, bytes_ms, ops_ms = time_k2(kern, megakernel, st.sim, cmd)
+    out |= dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"[time] {task} reset: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f}, operations {ops_ms:.5f})",
+          flush=True)
+    del env, st, cmd
+    torch.cuda.empty_cache()
+
+    def run(task, k, backend="auto"):
+        env = mtt.make(task, num_envs=k, control_mode=CONTROL_MODES.get(task, "pd_ee_delta_pos"),
+                       robot_init_qpos_noise=0.0, sim_backend=backend)
+        env.reset(seed=0)
+        if env.kernel is not None:
+            env.kernel.launches = 0
+        solve_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        success = SOLUTIONS[task](env)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sim = env._state.sim
+        steps = int(env._state.elapsed_steps[0])
+        k2 = env.kernel.launches if env.kernel is not None else 0
+        if backend == "auto" and (k2, solve_kernel.launches) != (steps, steps):
+            fail(f"[solutions] {task}: K2 launched {k2} and K1 {solve_kernel.launches} times "
+                 f"in {steps} control steps")
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (sim.qpos, sim.qvel, sim.free_pose, sim.free_vel)):
+            fail(f"[solutions] {task}: final states not finite")
+        rate = float(success.mean())
+        print(f"[solutions] {task} B={k} {'K2' if backend == 'auto' else 'plain step'}: "
+              f"success {rate:.4f} ({int(success.sum())}/{k}), {steps} control steps in "
+              f"{dt:.1f} s, {steps * k / dt:.1f} env steps/s; K2 launches {k2}, K1 "
+              f"{solve_kernel.launches}", flush=True)
+        return rate, k2
+
+    out["launches"] = 0
+    rates = {}
+    for task in SOLUTIONS:
+        rates[task], k2 = run(task, K_SOL)
+        out["launches"] += k2
+        torch.cuda.empty_cache()
+    for task in ("PickCube-v1", "FoldSuitcase-v1"):
+        p_k, _ = run(task, K_SOL_AB)
+        p_p, _ = run(task, K_SOL_AB, backend="torch")
+        se = math.sqrt((p_k * (1 - p_k) + p_p * (1 - p_p)) / K_SOL_AB)
+        print(f"[solutions] {task} B={K_SOL_AB}: K2 {p_k:.4f} against the plain step "
+              f"{p_p:.4f} (allowed {3 * se + 0.02:.4f})", flush=True)
+        if abs(p_k - p_p) > 3 * se + 0.02:
+            fail(f"[solutions] {task}: success on K2 {p_k:.4f}, on the plain step {p_p:.4f}")
+    out["success"] = rates
+    return out
+
+
 def main():
     import torch
 
@@ -1553,6 +1888,14 @@ def main():
 
     # ---- 1. build: one nvcc per source, all at once ----
     t_start = t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(phase):
+        """Print the seconds since the last lap: the phase before ``phase``."""
+        now = time.perf_counter()
+        print(f"[lap] up to phase {phase}: {now - laps[-1]:.1f} s", flush=True)
+        laps.append(now)
+
     libs = _cuda.build("megakernel", "solve_psd")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1569,6 +1912,7 @@ def main():
     print(f"[build] megakernel: {caps['WARPS']} envs (warps) a block, each env's slice of "
           "shared memory sized per scene at launch (dynamic; [time] lines)", flush=True)
 
+    lap("2")
     # ---- 2. K2 against its plain version on each path's scene ----
     pick = kernel_phase(mtt, engine, megakernel, "PickCube-v1", pickcube_branches)
     pick["ragged_max_abs_err"] = ragged_phase(mtt)
@@ -1622,34 +1966,43 @@ def main():
     cartpole = control_phase(mtt, engine, megakernel, "MS-CartpoleBalance-v1")
     torch.cuda.empty_cache()
 
+    lap("3")
     # ---- 3. the differentiable step on the card ----
     seam_err = seam_phase(mtt, planners.ILQR, planners.ILQRConfig)
     print(f"[seam] largest relative difference {seam_err:.3e}", flush=True)
 
+    lap("4")
     # ---- 4. the PickCube main path: MPPI ----
     pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42)
 
+    lap("5")
     # ---- 5. the PickSingleYCB path: MPPI at config #5 ----
     torch.cuda.empty_cache()
     ycb |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickSingleYCB-v1",
                       46, num_samples=K_YCB, sigma=SIGMA_YCB, temperature=TEMP_YCB)
 
+    lap("5b")
     # ---- 5b. the PlugCharger and RollBall paths: MPPI at the bench shape ----
     torch.cuda.empty_cache()
     plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1", 39)
-    roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1", 44)
+    roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1", 44,
+                       profile=False)
 
+    lap("5c")
     # ---- 5c. the in-hand path: RotateSingleObjectInHandLevel2-v1 MPPI ----
     torch.cuda.empty_cache()
     inhand |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                         "RotateSingleObjectInHandLevel2-v1", 40)
+                         "RotateSingleObjectInHandLevel2-v1", 40, profile=False)
 
+    lap("5d")
     # ---- 5d. the articulated paths: MPPI at the JAX package's configs ----
     for numbers, task, obs_dim in ((fold, "FoldSuitcase-v1", 34), (faucet, "TurnFaucet-v1", 32),
                                    (cabinet, "OpenCabinetDrawer-v1", 46)):
         torch.cuda.empty_cache()
-        numbers |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, task, obs_dim)
+        numbers |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, task, obs_dim,
+                              profile=False)
 
+    lap("5e")
     # ---- 5e. the control-suite paths: MPPI at the bench shape ----
     # a humanoid rollout that falls flat reaches its root chain's
     # singularity (control_phase) and may end non-finite, as in the JAX
@@ -1659,28 +2012,45 @@ def main():
     humanoid |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
                            "MS-HumanoidStand-v1", 54, min_finite=0.5)
     cartpole |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                           "MS-CartpoleBalance-v1", 10)
+                           "MS-CartpoleBalance-v1", 10, profile=False)
     hopper |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                         "MS-HopperStand-v1", 14)
+                         "MS-HopperStand-v1", 14, profile=False)
 
+    lap("5f")
     # ---- 5f. the rest of the BASELINE MPC set: PegInsertionSide MPPI at
     # config #4 (H=80, K=16384), PokeCube MPPI at its planner config, and
     # PushCube episodes: the device loop (one CUDA graph a control step)
     # against the host loop ----
     torch.cuda.empty_cache()
-    # the bound from every 20th launch of the warm-up solve (rollout steps
-    # 0, 20, 40, 60): megakernel.work at K=16384 takes seconds a launch
+    # the bound from every 40th launch of the warm-up solve (rollout steps
+    # 0 and 40; every 20th until PR 11): megakernel.work at K=16384 takes
+    # seconds a launch
     peg |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                      "PegInsertionSide-v1", 43, bound_every=20)
+                      "PegInsertionSide-v1", 43, bound_every=40)
     torch.cuda.empty_cache()
     poke |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PokeCube-v1", 42)
     push |= episode_phase(mtt, planners)
 
+    lap("6")
     # ---- 6. the StackCube path: CEM + iLQR ----
     stack["launches"] = cem_ilqr_phase(mtt, planners)
 
+    lap("7")
     # ---- 7. K1 ----
     k1 = solve_phase(linalg, solve_kernel)
+
+    lap("8")
+    # ---- 8. the Panda's control modes, the task-space (IK) path and the
+    # scripted solutions ----
+    torch.cuda.empty_cache()
+    modes = modes_phase(mtt, megakernel, solve_kernel)
+    lap("8 [ee]")
+    k1_ee, ee_k2 = ee_phase(mtt, megakernel, solve_kernel, linalg, planners)
+    modes |= {k: ee_k2[k] for k in ("path_ms", "path_bound_ms")}
+    torch.cuda.empty_cache()
+    lap("8 [solutions]")
+    sols = solutions_phase(mtt, megakernel, solve_kernel)
+    lap("done")
     print(f"[done] every phase passed, {time.perf_counter() - t_start:.1f} s with the builds",
           flush=True)
 
@@ -1738,6 +2108,22 @@ def main():
         | {"inputs": "n=21, K=4096, SPD"},
         entry("solve_psd", k1_src, k1_tpu, k1[65536], k1[65536]["library_ms"])
         | {"inputs": "n=21, K=65536, SPD; plain_ms at K=4096"},
+        entry("megakernel_step", k2_src, k2_tpu, modes)
+        | {"inputs": f"PickCube-v1, K={K_CHECK}, the Panda's eight control modes (max_abs_err "
+                     f"over them; ms, plain_ms, bound_ms: the pd_ee_delta_pose contact step); "
+                     f"launches: one env.step a mode; path_*: MPPI H=50, K=4096 under "
+                     f"pd_ee_delta_pose"},
+        entry("megakernel_step", k2_src, k2_tpu, sols)
+        | {"inputs": f"PullCubeTool-v1, K={K_CHECK}, reset states; launches: every scripted "
+                     f"solution at B={K_SOL}, one a control step"},
+        entry("solve_psd", k1_src, k1_tpu, k1_ee[6], k1_ee[6]["library_ms"])
+        | {"inputs": f"n=6, K={K_CHECK}: the pd_ee_delta_pose IK systems of PickCube-v1 reset "
+                     f"states; launches: MPPI H=50, K=4096, {TIMED_SOLVES + 1} solves; path_ms: "
+                     f"a launch in those solves"},
+        entry("solve_psd", k1_src, k1_tpu, k1_ee[3], k1_ee[3]["library_ms"])
+        | {"inputs": f"n=3, K={K_CHECK}: the pd_ee_delta_pos IK systems of PickCube-v1 reset "
+                     f"states; launches: MPPI H=50, K=4096, {TIMED_SOLVES + 1} solves; path_ms: "
+                     f"a launch in those solves"},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

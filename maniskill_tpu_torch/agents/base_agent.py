@@ -105,10 +105,11 @@ class BaseAgent:
         if control_mode not in cfgs:
             raise KeyError(f"unknown control mode {control_mode!r}; available: {list(cfgs)}")
         self.control_mode = control_mode
+        self.supported_control_modes = tuple(cfgs)
         named = {}
         for name, cfg in cfgs[control_mode].items():
             cfg.joint_indices = self._resolve_joints(cfg.joint_names)
-            named[name] = make_controller(cfg, self.robot_spec.qlim, device)
+            named[name] = make_controller(cfg, self, device)
         self.controller = CompositeController(named, self.nq, device)
 
     def _make_robot_spec(self) -> RobotSpec:

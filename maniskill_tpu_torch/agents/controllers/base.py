@@ -1,10 +1,16 @@
 """Joint-space controllers on batched tensors.
 
-Port of ``maniskill_tpu/agents/controllers/base.py`` for the position
-modes, the mobile base, passive joints and torque actuation:
+Port of ``maniskill_tpu/agents/controllers/base.py``:
 ``PDJointPosControllerConfig`` and ``JointController`` in position mode,
-with delta or absolute targets, raw (``normalize_action=False``) or scaled
-actions, and the mimic (one action, all joints) gripper;
+with delta or absolute targets, the delta added to the last target
+(``use_target``: ``pd_joint_target_delta_pos``) or to qpos, raw
+(``normalize_action=False``) or scaled actions, and the mimic (one action,
+all joints) gripper; ``PDJointVelControllerConfig`` (the ``vel`` mode:
+velocity targets, kp 0) and ``PDJointPosVelControllerConfig`` (the
+``pos_vel`` mode: position targets as the position mode's, then velocity
+targets, ``:251-265``); the task-space configs ``PDEEPosControllerConfig``
+and ``PDEEPoseControllerConfig`` (``:128-145``; their controller is
+``ee.EEController``);
 ``PDBaseForwardVelControllerConfig`` (the ``base_vel`` mode,
 ``:160-175``, ``:268``: two actions, forward and turning velocity, onto the
 root x, y and yaw joints through damping-only velocity drives);
@@ -12,8 +18,7 @@ root x, y and yaw joints through damping-only velocity drives);
 ``:266``: no action, no stiffness, optional damping; its targets are left
 as they were); ``TorqueControllerConfig`` and ``TorqueController``
 (``:115``, ``:304-330``: the MJCF ``<motor>`` actuators, ``qf = gear *
-clip(a, ctrlrange)`` with kp = kd = 0). Velocity, pos-vel and end-effector
-controllers are not ported yet.
+clip(a, ctrlrange)`` with kp = kd = 0).
 """
 from __future__ import annotations
 
@@ -54,8 +59,55 @@ class PDJointPosControllerConfig(ControllerConfig):
     damping: Union[float, Sequence[float]] = 10.0
     force_limit: Union[float, Sequence[float]] = 1e10
     use_delta: bool = False  # targets are qpos + action
+    use_target: bool = False  # with use_delta: the last target + action
     mimic: bool = False  # one action drives all joints
     normalize_action: bool = True  # action in [-1, 1] scaled to [lower, upper]
+
+
+@dataclass
+class PDJointPosVelControllerConfig(PDJointPosControllerConfig):
+    """Action [position targets (nj), velocity targets (nj)]: the position
+    half as ``PDJointPosControllerConfig``'s, the velocity half scaled to
+    [vel_lower, vel_upper]."""
+
+    vel_lower: Union[float, Sequence[float]] = -1.0
+    vel_upper: Union[float, Sequence[float]] = 1.0
+
+
+@dataclass
+class PDJointVelControllerConfig(ControllerConfig):
+    """Joint velocity targets in [lower, upper] through damping-only drives."""
+
+    lower: Union[None, float, Sequence[float]] = -1.0
+    upper: Union[None, float, Sequence[float]] = 1.0
+    damping: Union[float, Sequence[float]] = 10.0
+    force_limit: Union[float, Sequence[float]] = 1e10
+    normalize_action: bool = True
+
+
+@dataclass
+class PDEEPosControllerConfig(ControllerConfig):
+    """Task-space delta-position control through one damped-least-squares IK
+    step a control step, in the ``root_translation`` frame (the only frame
+    the JAX controller takes)."""
+
+    pos_lower: Union[None, float] = -0.1
+    pos_upper: Union[None, float] = 0.1
+    stiffness: Union[float, Sequence[float]] = 100.0
+    damping: Union[float, Sequence[float]] = 10.0
+    force_limit: Union[float, Sequence[float]] = 1e10
+    ee_link: str = ""
+    normalize_action: bool = True
+    ik_damping: float = 0.05
+
+
+@dataclass
+class PDEEPoseControllerConfig(PDEEPosControllerConfig):
+    """``PDEEPosControllerConfig`` plus a rotation delta (axis-angle, in
+    the ``root_aligned_body_rotation`` frame) in [rot_lower, rot_upper]."""
+
+    rot_lower: float = -0.1
+    rot_upper: float = 0.1
 
 
 @dataclass
@@ -87,17 +139,24 @@ class TorqueControllerConfig(ControllerConfig):
     ctrlrange: Tuple[float, float] = (-1.0, 1.0)
 
 
-def make_controller(config: ControllerConfig, qlim: np.ndarray, device):
-    """The controller of a resolved config (``joint_indices`` set)."""
+def make_controller(config: ControllerConfig, agent, device):
+    """The controller of a resolved config (``joint_indices`` set) of
+    ``agent``'s robot."""
+    if isinstance(config, PDEEPosControllerConfig):
+        from .ee import EEController
+
+        return EEController(config, agent.robot_spec, device)
     if isinstance(config, TorqueControllerConfig):
         return TorqueController(config, device)
-    return JointController(config, qlim, device)
+    return JointController(config, agent.robot_spec.qlim, device)
 
 
 class JointController:
     """Per-joint PD controller with device-resident constants: position
-    targets (``PDJointPosControllerConfig``), the mobile base's velocity
-    targets (``PDBaseForwardVelControllerConfig``) or passive joints
+    targets (``PDJointPosControllerConfig``), position and velocity targets
+    (``PDJointPosVelControllerConfig``), velocity targets
+    (``PDJointVelControllerConfig``), the mobile base's velocity targets
+    (``PDBaseForwardVelControllerConfig``) or passive joints
     (``PassiveControllerConfig``)."""
 
     def __init__(self, config: ControllerConfig, qlim: np.ndarray, device):
@@ -107,7 +166,7 @@ class JointController:
         self.nj = len(idx)
         self._idx = torch.as_tensor(idx, device=device)
         self.qlim = qlim[idx].astype(np.float32)
-        self.use_delta = self.mimic = False
+        self.use_delta = self.use_target = self.mimic = False
         if isinstance(config, PDBaseForwardVelControllerConfig):
             if self.nj != 3:
                 raise ValueError("the base controller drives (root x, root y, root yaw)")
@@ -132,27 +191,43 @@ class JointController:
             self.kd = np.broadcast_to(np.asarray(config.damping, np.float32), (self.nj,)).copy()
             self.force_limit = np.full(self.nj, 1e10, np.float32)
             return
-        if not isinstance(config, PDJointPosControllerConfig):
+        if isinstance(config, PDJointVelControllerConfig):
+            self._mode = "vel"
+            lo = np.broadcast_to(np.asarray(config.lower, np.float32), (self.nj,)).copy()
+            hi = np.broadcast_to(np.asarray(config.upper, np.float32), (self.nj,)).copy()
+        elif isinstance(config, PDJointPosControllerConfig):
+            self._mode = "pos"
+            lo = qlim[idx, 0].copy()
+            hi = qlim[idx, 1].copy()
+            if config.lower is not None:
+                lo[:] = config.lower
+            if config.upper is not None:
+                hi[:] = config.upper
+            self.use_delta = config.use_delta
+            self.use_target = config.use_target
+            self.mimic = config.mimic
+            if isinstance(config, PDJointPosVelControllerConfig):
+                if self.mimic:
+                    raise ValueError("a pos_vel controller takes no mimic joints")
+                self._mode = "pos_vel"
+                lo = np.concatenate([lo, np.broadcast_to(
+                    np.asarray(config.vel_lower, np.float32), (self.nj,))])
+                hi = np.concatenate([hi, np.broadcast_to(
+                    np.asarray(config.vel_upper, np.float32), (self.nj,))])
+        else:
             raise NotImplementedError(f"controller {type(config).__name__}")
-        self._mode = "pos"
-        lo = qlim[idx, 0].copy()
-        hi = qlim[idx, 1].copy()
-        if config.lower is not None:
-            lo[:] = config.lower
-        if config.upper is not None:
-            hi[:] = config.upper
-        self.use_delta = config.use_delta
-        self.mimic = config.mimic
         self.normalize_action = config.normalize_action
         if self.mimic:
             if not (np.allclose(lo, lo[0]) and np.allclose(hi, hi[0])):
                 raise ValueError("mimic joints need one shared action range")
             self.action_dim = 1
         else:
-            self.action_dim = self.nj
+            self.action_dim = len(lo)
         self.raw_low = lo.astype(np.float32)
         self.raw_high = hi.astype(np.float32)
-        self.kp = np.broadcast_to(np.asarray(config.stiffness, np.float32), (self.nj,)).copy()
+        # the velocity mode has no stiffness: its drives are damping only
+        self.kp = np.broadcast_to(np.asarray(getattr(config, "stiffness", 0.0), np.float32),
+                                  (self.nj,)).copy()
         self.kd = np.broadcast_to(np.asarray(config.damping, np.float32), (self.nj,)).copy()
         self.force_limit = np.broadcast_to(
             np.asarray(config.force_limit, np.float32), (self.nj,)).copy()
@@ -179,10 +254,19 @@ class JointController:
         if self.mimic:
             a = a.expand(a.shape[:-1] + (self.nj,))
         q = qpos[..., self._idx]
-        tgt = q + a if self.use_delta else a.expand(q.shape)
+        if self._mode == "vel":
+            return ControllerState(target_qpos=q, target_qvel=a)
+        tv = None
+        if self._mode == "pos_vel":
+            a, tv = a[..., :self.nj], a[..., self.nj:]
+        if self.use_delta:
+            tgt = (cstate.target_qpos if self.use_target else q) + a
+        else:
+            tgt = a.expand(q.shape)
         # clamp targets to joint limits like PhysX drive targets do
         tgt = clamps.clip(tgt, self._qlo, self._qhi)
-        return ControllerState(target_qpos=tgt, target_qvel=torch.zeros_like(tgt))
+        return ControllerState(target_qpos=tgt,
+                               target_qvel=torch.zeros_like(tgt) if tv is None else tv)
 
 
 class TorqueController:

@@ -6,7 +6,10 @@ split by ``action_dim`` and each sub-controller writes drive targets for its
 joints into the full (K, nq) target arrays. A torque sub-controller also
 writes its joints' generalized forces: when the composite has one, ``qf``
 is rebuilt each step, zero on every other dof (``:90-108``); otherwise the
-command's ``qf`` is kept.
+command's ``qf`` is kept. A task-space sub-controller (``ee.EEController``)
+takes the env's FK of the pre-step state as ``aux``; ``needs_fk_aux`` says
+whether the composite has one (``:42``), so that the env computes that FK
+only then.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from ...physics.model import DriveCmd
 from .base import ControllerState, JointController
+from .ee import EEController
 
 
 class CompositeController:
@@ -33,6 +37,7 @@ class CompositeController:
             highs.append(c.raw_high[:n] if not c.normalize_action else np.ones(n, np.float32))
         self.action_low = np.concatenate(lows).astype(np.float32)
         self.action_high = np.concatenate(highs).astype(np.float32)
+        self.needs_fk_aux = any(isinstance(c, EEController) for c in controllers.values())
         # full-dof drive gains for the scene model
         self.kp = np.zeros(nq, dtype=np.float32)
         self.kd = np.zeros(nq, dtype=np.float32)
@@ -56,9 +61,10 @@ class CompositeController:
         return DriveCmd(target_qpos=qpos.clone(), target_qvel=torch.zeros_like(qpos),
                         qf=torch.zeros_like(qpos), kp=kp, kd=kd, force_limit=fl)
 
-    def set_action(self, cmd: DriveCmd, qpos: torch.Tensor,
-                   action: torch.Tensor) -> DriveCmd:
-        """Split the flat (K, A) action and compute new full-dof targets."""
+    def set_action(self, cmd: DriveCmd, qpos: torch.Tensor, action: torch.Tensor,
+                   aux=None) -> DriveCmd:
+        """Split the flat (K, A) action and compute new full-dof targets;
+        ``aux`` goes to the task-space sub-controllers only."""
         tq = cmd.target_qpos.clone()
         tv = torch.zeros_like(tq)
         qf = None
@@ -68,7 +74,8 @@ class CompositeController:
             off += c.action_dim
             sub = ControllerState(target_qpos=cmd.target_qpos[..., c._idx],
                                   target_qvel=cmd.target_qvel[..., c._idx])
-            new_sub = c.set_action(sub, qpos, a)
+            new_sub = (c.set_action(sub, qpos, a, aux=aux) if isinstance(c, EEController)
+                       else c.set_action(sub, qpos, a))
             tq[..., c._idx] = new_sub.target_qpos
             tv[..., c._idx] = new_sub.target_qvel
             if hasattr(c, "compute_qf"):

@@ -1,11 +1,14 @@
 """Panda (Franka Emika) agent.
 
 Port of ``maniskill_tpu/agents/robots/panda.py``: the URDF, gains, rest
-keyframe, collision pruning, the ``pd_joint_delta_pos`` control mode
-(``:88``), ``build_grasp_checker`` (``:147``) and ``is_static`` (``:187``).
-``PandaWristCam`` (``panda_wristcam``, ``:193``) is the same body and
-controllers; its hand camera waits for the sensors. The other control
-modes are not ported yet.
+keyframe, collision pruning, the eight control modes in the JAX package's
+order (``:78-140``; the first, ``pd_joint_delta_pos``, is the default):
+``pd_joint_delta_pos``, ``pd_joint_pos``, ``pd_ee_delta_pos``,
+``pd_ee_delta_pose``, ``pd_joint_target_delta_pos``, ``pd_joint_vel``,
+``pd_joint_pos_vel`` and ``pd_joint_delta_pos_vel``, the gripper on the
+mimic ``pd_joint_pos`` in each; ``build_grasp_checker`` (``:147``) and
+``is_static`` (``:187``). ``PandaWristCam`` (``panda_wristcam``, ``:193``)
+is the same body and controllers; its hand camera waits for the sensors.
 The URDF is read as a data file from the JAX package's asset tree.
 """
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch
 from ...math.rotations import angle_between, quat_to_matrix
 from ...physics.shapes import GeomType
 from ..base_agent import BaseAgent, Keyframe, register_agent
-from ..controllers.base import PDJointPosControllerConfig
+from ..controllers.base import (PDEEPosControllerConfig, PDEEPoseControllerConfig,
+                                PDJointPosControllerConfig, PDJointPosVelControllerConfig,
+                                PDJointVelControllerConfig)
 
 PANDA_URDF = str(Path(__file__).resolve().parents[3]
                  / "maniskill_tpu" / "assets" / "robots" / "panda" / "panda_v2.urdf")
@@ -58,17 +63,33 @@ class Panda(BaseAgent):
     )]
 
     def _controller_configs(self):
-        arm = PDJointPosControllerConfig(
-            joint_names=ARM_JOINTS, lower=-0.1, upper=0.1, use_delta=True,
-            stiffness=self.arm_stiffness, damping=self.arm_damping,
-            force_limit=self.arm_force_limit)
+        arm = dict(joint_names=ARM_JOINTS, stiffness=self.arm_stiffness,
+                   damping=self.arm_damping, force_limit=self.arm_force_limit)
+        ee = dict(pos_lower=-0.1, pos_upper=0.1, ee_link=self.ee_link_name, **arm)
         gripper = PDJointPosControllerConfig(
             joint_names=GRIPPER_JOINTS,
             lower=-0.01,  # closing force on thin objects
             upper=0.04,
             stiffness=self.gripper_stiffness, damping=self.gripper_damping,
             force_limit=self.gripper_force_limit, mimic=True)
-        return dict(pd_joint_delta_pos=dict(arm=arm, gripper=gripper))
+        arms = dict(
+            pd_joint_delta_pos=PDJointPosControllerConfig(
+                lower=-0.1, upper=0.1, use_delta=True, **arm),
+            pd_joint_pos=PDJointPosControllerConfig(
+                lower=None, upper=None, normalize_action=False, **arm),
+            pd_ee_delta_pos=PDEEPosControllerConfig(**ee),
+            pd_ee_delta_pose=PDEEPoseControllerConfig(rot_lower=-0.1, rot_upper=0.1, **ee),
+            pd_joint_target_delta_pos=PDJointPosControllerConfig(
+                lower=-0.1, upper=0.1, use_delta=True, use_target=True, **arm),
+            pd_joint_vel=PDJointVelControllerConfig(
+                joint_names=ARM_JOINTS, lower=-1.0, upper=1.0, damping=self.arm_damping,
+                force_limit=self.arm_force_limit),
+            pd_joint_pos_vel=PDJointPosVelControllerConfig(
+                lower=None, upper=None, normalize_action=False, **arm),
+            pd_joint_delta_pos_vel=PDJointPosVelControllerConfig(
+                lower=-0.1, upper=0.1, use_delta=True, **arm),
+        )
+        return {mode: dict(arm=cfg, gripper=gripper) for mode, cfg in arms.items()}
 
     def build_grasp_checker(self, model, obj_name: str, device,
                             min_force: float = 0.5, max_angle: float = 85.0):

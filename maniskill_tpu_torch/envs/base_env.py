@@ -261,8 +261,16 @@ class BaseEnv:
         return state, self._get_obs(state, ctx, info), info
 
     def _advance(self, state: EnvState, action: torch.Tensor):
-        """Controller, physics and bookkeeping of one control step."""
-        cmd = self.agent.controller.set_action(state.cmd, state.sim.qpos, action)
+        """Controller, physics and bookkeeping of one control step. A
+        task-space controller gets the FK of the pre-step state as ``aux``
+        (the JAX ``_step_one``/``_rollout_step``, ``envs/base_env.py:524-564``)."""
+        controller = self.agent.controller
+        aux = None
+        if controller.needs_fk_aux:
+            ctx0 = TaskContext(self, state)
+            base = const(self.model, "robot_base_pose", self.model.robot_base_pose, self.device)
+            aux = (base, ctx0.body_pos, ctx0.body_quat, ctx0.axis_w)
+        cmd = controller.set_action(state.cmd, state.sim.qpos, action, aux=aux)
         sim = self._physics_step(state.sim, cmd)
         state = state.replace(sim=sim, cmd=cmd,
                               elapsed_steps=state.elapsed_steps + 1)

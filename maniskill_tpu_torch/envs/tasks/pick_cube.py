@@ -62,7 +62,6 @@ def pose_ik(env, qpos: torch.Tensor, p_goal: torch.Tensor, q_goal: torch.Tensor,
     idx = torch.as_tensor(arm, device=dev)
     qlim = torch.as_tensor(model.robot_qlim, device=dev)
     qpos = qpos.clone()
-    eye = 1e-4 * torch.eye(6, device=dev)
     for _ in range(iters):
         body_pos, body_quat, axis_w = chain.fk(spec, base, qpos)
         p, q = chain.frame_pose(spec, base, body_pos, body_quat, env.agent.ee_link_name)
@@ -71,9 +70,8 @@ def pose_ik(env, qpos: torch.Tensor, p_goal: torch.Tensor, q_goal: torch.Tensor,
         err = torch.cat([w_err, p_goal - p], dim=-1)
         J = chain.point_jacobian(spec, body_pos, axis_w, p, tcp, arm,
                                  model.ancestor_mask)  # (K, 6, n)
-        dq = J.transpose(1, 2) @ torch.linalg.solve(
-            J @ J.transpose(1, 2) + eye, err[..., None])
-        qpos[:, idx] = torch.clamp(qpos[:, idx] + dq[..., 0].clamp(-0.2, 0.2),
+        dq = chain.dls_ik_delta(J, err, damping=0.01)
+        qpos[:, idx] = torch.clamp(qpos[:, idx] + dq.clamp(-0.2, 0.2),
                                    qlim[idx, 0], qlim[idx, 1])
     return qpos
 

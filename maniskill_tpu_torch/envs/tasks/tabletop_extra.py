@@ -1,25 +1,30 @@
-"""RollBall-v1.
+"""RollBall-v1, PullCubeTool-v1 and Empty-v1.
 
-Port of ``RollBallEnv`` in ``maniskill_tpu/envs/tasks/tabletop_extra.py``
+Port of ``maniskill_tpu/envs/tasks/tabletop_extra.py``. ``RollBallEnv``
 (``:60-165``): a 3.5 cm ball of density 1000 (a free sphere) is to be
 rolled into a goal region (a kinematic body without geoms) across the
 table. Same reset draw (ball xy in [0, 0.15] x [-0.1, 0.1], goal xy in
 [-0.65, -0.35] x [-0.3, 0.3]), the ``reached`` latch kept in the env's
 extras by ``_update_extras``, success (the ball's xy within 0.1 m of the
 goal's), state obs and the staged dense reward (20 on the way after the
-hit, 30 on success) with its normalized form. The JAX env's base camera
-waits for the sensors. Empty-v1, PlaceSphere-v1 and PullCubeTool-v1 of the
-same JAX module are not ported yet.
+hit, 30 on success) with its normalized form. ``PullCubeToolEnv``
+(``:265``): a cube beyond the arm's reach and an L-shaped tool (a handle
+box and a hook box on one free body) to pull it in with; the same reset
+ranges, success (the cube's xy within 0.6 m of the robot's base), state obs
+and the staged dense reward. ``EmptyEnv`` (``:24``): the robot on the
+table, no task. The JAX envs' base cameras wait for the sensors;
+PlaceSphere-v1 of the same JAX module is not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..._consts import const
 from ...math import clamps
 from ...math.rotations import quat_apply
 from ...physics.engine import all_geom_poses, make_step_fn, robot_fk
-from ...physics.model import SceneSpecBuilder, sphere_geom
+from ...physics.model import SceneSpecBuilder, box_geom, sphere_geom
 from ..base_env import BaseEnv, EnvState, TaskContext
 from ..registration import register_env
 from ..scene_builders import TABLE_HEIGHT, TableSceneBuilder
@@ -172,3 +177,121 @@ class RollBallEnv(BaseEnv):
 
     def compute_normalized_dense_reward(self, state, action, info, ctx):
         return self.compute_dense_reward(state, action, info, ctx) / 30.0
+
+
+@register_env("Empty-v1", max_episode_steps=200)
+class EmptyEnv(BaseEnv):
+    """The robot on the table with nothing to do: for driving controllers."""
+
+    DEFAULT_ROBOT = "panda"
+
+    def _load_agent(self, builder: SceneSpecBuilder):
+        self.table_scene = TableSceneBuilder(self)
+        pose, qpos = self.table_scene.robot_pose_and_qpos(self.robot_uids)
+        self.agent.install(builder, pose, init_qpos=qpos)
+
+    def _load_scene(self, builder: SceneSpecBuilder):
+        self.table_scene.build(builder)
+
+    def _get_obs_extra(self, state: EnvState, ctx: TaskContext, info):
+        return dict(tcp_pose=ctx.tcp_pose.raw)
+
+
+@register_env("PullCubeTool-v1", max_episode_steps=100)
+class PullCubeToolEnv(BaseEnv):
+    """The cube spawns beyond direct reach: grasp the L-shaped tool and hook
+    the cube closer."""
+
+    DEFAULT_ROBOT = "panda"
+
+    cube_half = 0.02
+    handle_length = 0.2
+    hook_length = 0.05
+    tool_width = 0.02
+    tool_height = 0.02
+    arm_reach = 0.35
+
+    def _load_agent(self, builder: SceneSpecBuilder):
+        self.table_scene = TableSceneBuilder(self)
+        pose, qpos = self.table_scene.robot_pose_and_qpos(self.robot_uids)
+        self._base_xy = np.asarray(pose[:2], np.float32)
+        self.agent.install(builder, pose, init_qpos=qpos)
+
+    def _load_scene(self, builder: SceneSpecBuilder):
+        self.table_scene.build(builder)
+        half = self.cube_half
+        m = 1000.0 * (2 * half) ** 3
+        inertia = (2.0 / 3.0) * m * half * half * np.eye(3)
+        self.cube = builder.add_free_body("cube", m, inertia,
+                                          [box_geom([half] * 3, friction=0.5)])
+        # the L tool: a handle along +x and a hook across +y at its far end
+        hl, hk, w, ht = self.handle_length, self.hook_length, self.tool_width, self.tool_height
+        tm = 500.0 * (2 * hl * 2 * w * ht + 2 * hk * 2 * w * ht)
+        geoms = [box_geom([hl / 2, w, ht / 2], friction=0.8),
+                 box_geom([hk / 2, w, ht / 2], offset_p=[hl / 2 - hk / 2, 2 * w, 0],
+                          friction=0.8)]
+        self.tool = builder.add_free_body("l_shape_tool", tm, tm * 2e-3 * np.eye(3), geoms)
+
+    def _post_build(self):
+        self._is_grasping_tool = self.agent.build_grasp_checker(
+            self.model, "l_shape_tool", self.device, max_angle=20)
+
+    def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
+        K = state.sim.qpos.shape[0]
+        dev = self.device
+        cube_xy = self._uniform(gen, (K, 2), [0.15, -0.1], [0.25, 0.1])  # out of reach
+        tool_xy = self._uniform(gen, (K, 2), [-0.2, -0.25], [-0.1, -0.15])
+        rest = torch.tensor([1.0, 0, 0, 0], device=dev).expand(K, 4)
+        free_pose = state.sim.free_pose.clone()
+        free_pose[:, self.cube] = torch.cat(
+            [cube_xy, torch.full((K, 1), self.cube_half, device=dev), rest], -1)
+        free_pose[:, self.tool] = torch.cat(
+            [tool_xy, torch.full((K, 1), self.tool_height / 2, device=dev), rest], -1)
+        return state.replace(sim=state.sim.replace(
+            free_pose=free_pose, free_vel=torch.zeros_like(state.sim.free_vel)))
+
+    def _base(self, device):
+        return const(self, "base", np.append(self._base_xy, 0.0), device)
+
+    def evaluate(self, state: EnvState, ctx: TaskContext):
+        # the cube pulled within 0.6 m of the robot's base
+        cube_p = ctx.actor_pose("cube").p
+        base = self._base(cube_p.device)
+        return dict(success=torch.linalg.norm(cube_p[..., :2] - base[:2], dim=-1) < 0.6)
+
+    def _get_obs_extra(self, state: EnvState, ctx: TaskContext, info):
+        obs = dict(tcp_pose=ctx.tcp_pose.raw)
+        if self.obs_mode in ("state", "state_dict"):
+            obs.update(cube_pose=ctx.actor_pose("cube").raw,
+                       tool_pose=ctx.actor_pose("l_shape_tool").raw)
+        return obs
+
+    def compute_dense_reward(self, state, action, info, ctx: TaskContext):
+        # staged: reach and grasp the tool, hook behind the cube, pull it in;
+        # a penalty for a cube pushed out of reach and 5 on success
+        cube_p = ctx.actor_pose("cube").p
+        tool_p = ctx.actor_pose("l_shape_tool").p
+        tcp = ctx.tcp_pose.p
+        dev = cube_p.device
+        base = self._base(dev)
+        tool_grasp = tool_p + const(self, "grasp_off", [0.02, 0.0, 0.0], dev)
+        reaching = 2.0 * (1.0 - torch.tanh(5.0 * torch.linalg.norm(tcp - tool_grasp, dim=-1)))
+        grasped = self._is_grasping_tool(ctx.body_quat, ctx.contact_forces()).to(tcp.dtype)
+        reward = reaching + 2.0 * grasped
+        ideal_hook = cube_p + const(
+            self, "hook_off", [-(self.hook_length + self.cube_half), -0.067, 0.0], dev)
+        pos_dist = torch.linalg.norm(tool_p - ideal_hook, dim=-1)
+        positioning = 1.5 * (1.0 - torch.tanh(3.0 * pos_dist))
+        positioned = (pos_dist < 0.05).to(tcp.dtype)
+        target = base + const(self, "target_off", [0.05, 0.0, 0.0], dev)
+        cube_to_ws = torch.linalg.norm(cube_p - target, dim=-1)
+        initial = float(np.linalg.norm(
+            np.array([self.arm_reach + 0.1, 0.0, self.cube_half], np.float32)
+            - (np.append(self._base_xy, 0.0) + np.array([0.05, 0.0, 0.0])).astype(np.float32)))
+        progress = (initial - cube_to_ws) / initial
+        reward = reward + (positioning + 3.0 * progress * positioned) * grasped
+        reward = torch.where(cube_p[..., 0] > self.arm_reach + 0.15, reward - 2.0, reward)
+        return torch.where(info["success"], reward + 5.0, reward)
+
+    def compute_normalized_dense_reward(self, state, action, info, ctx):
+        return self.compute_dense_reward(state, action, info, ctx) / 5.0

@@ -1,10 +1,12 @@
 """Kinematic chain operations on batched torch tensors: FK, frame poses,
-point Jacobians.
+point Jacobians, the damped-least-squares IK step.
 
 Port of ``maniskill_tpu/kinematics/chain.py`` (``fk``, ``_fk_unrolled``,
-``frame_pose``, ``point_jacobian``). The JAX package has two lowerings of FK
-(an unrolled one for the TPU and a ``lax.scan`` one for its CPU tests); the
-port keeps only the unrolled form, which is also what the CUDA kernel runs.
+``frame_pose``, ``point_jacobian``, ``dls_ik_delta``). The JAX package has
+two lowerings of FK (an unrolled one for the TPU and a ``lax.scan`` one for
+its CPU tests); the port keeps only the unrolled form, which is also what
+the CUDA kernel runs. The IK step's SPD solve goes through the batched
+solve kernel (``physics/solve_kernel.py``) on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from .._consts import const
 from ..math.rotations import quat_apply, quat_mul
+from ..physics import solve_kernel
 from .urdf import JOINT_REVOLUTE, RobotSpec, _quat_mul
 
 
@@ -92,14 +95,30 @@ def frame_pose(spec: RobotSpec, base_pose: torch.Tensor, body_pos, body_quat,
 def point_jacobian(spec: RobotSpec, body_pos, axis_w, point_w, body_idx: int,
                    joint_indices: np.ndarray, ancestor_mask: np.ndarray):
     """(..., 6, k) Jacobian ([ang; lin] rows) of a world point fixed to
-    ``body_idx`` w.r.t. the selected dofs."""
+    ``body_idx`` w.r.t. the selected dofs. The static tables are device
+    tensors cached on the spec (no host copy a call)."""
     dev = body_pos.device
-    is_rev = torch.as_tensor(
-        (spec.joint_type == JOINT_REVOLUTE).astype(np.float32)[:, None],
-        device=dev)
+    is_rev = const(spec, "is_rev", (spec.joint_type == JOINT_REVOLUTE)[:, None], dev)
+    row = np.asarray(ancestor_mask[body_idx], np.float32)
+    mask = const(spec, f"ancestors:{body_idx}:{row.tobytes().hex()}", row[:, None], dev)
+    cols = np.asarray(joint_indices, np.int64)
+    idx = const(spec, f"columns:{cols.tobytes().hex()}", cols, dev, dtype=torch.long)
     ang = is_rev * axis_w
     arm = point_w[..., None, :] - body_pos
     lin = is_rev * torch.linalg.cross(axis_w, arm, dim=-1) + (1.0 - is_rev) * axis_w
-    mask = torch.as_tensor(ancestor_mask[body_idx][:, None], device=dev)
     J = torch.cat([ang * mask, lin * mask], dim=-1).transpose(-1, -2)
-    return J[..., torch.as_tensor(joint_indices, dtype=torch.long, device=dev)]
+    return J[..., idx]
+
+
+def dls_ik_delta(J: torch.Tensor, dx: torch.Tensor, damping: float = 0.05) -> torch.Tensor:
+    """One damped-least-squares IK step for a batch: Δq = Jᵀ (J Jᵀ + λ²I)⁻¹ Δx
+    with J (K, m, nj) and Δx (K, m); returns Δq (K, nj).
+
+    The JAX package solves the system with LU (``jnp.linalg.solve``); it is
+    SPD with every pivot at least λ², so the batched Cholesky solve
+    (``solve_kernel.solve_psd``: the kernel on CUDA tensors, its plain
+    version on CPU ones) computes the same function, with no host sync."""
+    A = J @ J.transpose(-1, -2)
+    A.diagonal(dim1=-2, dim2=-1).add_(damping ** 2)
+    y = solve_kernel.solve_psd(A, dx)
+    return (J.transpose(-1, -2) @ y[..., None])[..., 0]

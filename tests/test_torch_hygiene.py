@@ -17,6 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = """
 import sys
+import numpy
 import maniskill_tpu_torch
 import maniskill_tpu_torch.convert, maniskill_tpu_torch.planners.mppi
 import maniskill_tpu_torch.planners.cem, maniskill_tpu_torch.planners.ilqr
@@ -34,11 +35,18 @@ import maniskill_tpu_torch.agents.robots.fetch, maniskill_tpu_torch.kinematics.a
 import maniskill_tpu_torch.mppi_ab
 import maniskill_tpu_torch.kinematics.mjcf, maniskill_tpu_torch.agents.robots.cartpole
 import maniskill_tpu_torch.envs.tasks.cartpole, maniskill_tpu_torch.envs.tasks.control_suite
+import maniskill_tpu_torch.agents.controllers.ee
+import maniskill_tpu_torch.examples.motionplanning.solutions
+import maniskill_tpu_torch.examples.motionplanning.run
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 maniskill_tpu_torch.make("RotateSingleObjectInHandLevel2-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("OpenCabinetDrawer-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("MS-HumanoidStand-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("MS-CartpoleBalance-v1", num_envs=2, device="cpu").reset(seed=0)
+_e = maniskill_tpu_torch.make("PullCubeTool-v1", num_envs=2, device="cpu",
+                              control_mode="pd_ee_delta_pose")
+_e.reset(seed=0)
+_e.step(numpy.zeros(7, "float32"))
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))

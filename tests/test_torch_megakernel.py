@@ -1021,13 +1021,13 @@ def test_slice_follows_a_hand_count(task, floats):
     assert plan.slice_floats() == floats and floats % 4 == 0
 
 
-_IDS = ["FoldSuitcase-v1", "FoldSuitcaseModels-v1", "LiftPegUpright-v1", "MS-AntRun-v1",
+_IDS = ["Empty-v1", "FoldSuitcase-v1", "FoldSuitcaseModels-v1", "LiftPegUpright-v1", "MS-AntRun-v1",
         "MS-AntWalk-v1", "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1",
         "MS-HopperStand-v1", "MS-HumanoidRun-v1", "MS-HumanoidStand-v1",
         "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1",
         "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1",
         "PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "PokeCube-v1",
-        "PullCube-v1", "PushCube-v1", "PushCubeKitchen-v1", "RollBall-v1",
+        "PullCube-v1", "PullCubeTool-v1", "PushCube-v1", "PushCubeKitchen-v1", "RollBall-v1",
         "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
         "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TurnFaucet-v1"]
@@ -1370,3 +1370,41 @@ def test_control_referee_catches_planted_fault(fault):
         _kernel_vs_plain(bad, st.sim, st.cmd, cenv.sim_steps_per_control, False, 37,
                          per_env=True)
     assert bad.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pd_ee_delta_pos", "pd_ee_delta_pose"])
+def test_ee_control_step_kernels_match_plain(mode, monkeypatch):
+    """One task-space control step of PickCube-v1 on the card (K=64): the
+    IK step launches K1 once and the physics step K2 once; the drive
+    targets through K1 against those through its plain version within
+    1e-4, and K2's step against the plain step within
+    ``test_kernel_matches_plain``'s tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from maniskill_tpu_torch.envs.base_env import TaskContext
+    from maniskill_tpu_torch.physics import linalg, solve_kernel
+
+    Kc = 64
+    cenv = mtt.make("PickCube-v1", num_envs=Kc, reward_mode="dense", device="cuda",
+                    control_mode=mode)
+    cenv.reset(seed=0)
+    st = cenv._state
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    action = 2 * torch.rand((Kc, cenv.action_dim), generator=gen, device="cuda") - 1
+    solve_kernel.launches, cenv.kernel.launches = 0, 0
+    st2, _, _ = cenv._advance(st, action)
+    torch.cuda.synchronize()
+    assert (solve_kernel.launches, cenv.kernel.launches) == (1, 1)
+    ctx = TaskContext(cenv, st)
+    aux = (torch.as_tensor(cenv.model.robot_base_pose, device="cuda"), ctx.body_pos,
+           ctx.body_quat, ctx.axis_w)
+    monkeypatch.setattr(solve_kernel, "solve_psd", linalg.solve_psd)
+    ref_cmd = cenv.agent.controller.set_action(st.cmd, st.sim.qpos, action, aux=aux)
+    err = float((st2.cmd.target_qpos - ref_cmd.target_qpos).abs().max())
+    assert err <= 1e-4, err
+    ref, _ = cenv.kernel.plain(st.sim, st2.cmd, 5)
+    for name, tol in dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+                          contact_lam=5e-3, contact_lam_t=5e-3).items():
+        e = (getattr(st2.sim, name) - getattr(ref, name)).abs().reshape(Kc, -1).amax(1)
+        assert bool((e <= tol).all()), (name, float(e.max()))

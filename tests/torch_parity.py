@@ -11,6 +11,7 @@ tables, the Python lists taken while tracing. The JAX package is not
 changed: the test modules patch the function for their own duration.
 """
 import contextlib
+import functools
 from unittest import mock
 
 import jax
@@ -43,3 +44,19 @@ def fast_trace_metadata():
     """``jeng._trace_metadata`` replaced by ``trace_metadata`` inside."""
     with mock.patch.object(jeng, "_trace_metadata", trace_metadata):
         yield
+
+
+@functools.lru_cache(maxsize=None)
+def jax_env(task, control_mode, num_envs):
+    """A JAX env of ``num_envs`` envs under ``control_mode`` on the XLA
+    engine (the plain reference of its Pallas kernel), reset with seed 0:
+    its reset outputs in ``reset_out`` and its reset state in
+    ``reset_state``. Its jitted env step (``_jit_step``) is shared by the
+    modules that ask for the same env in one process."""
+    import maniskill_tpu as mst
+
+    env = mst.make(task, num_envs=num_envs, reward_mode="dense", sim_backend="xla",
+                   control_mode=control_mode)
+    env.reset_out = env.reset(seed=0)
+    env.reset_state = env._state
+    return env
