@@ -64,11 +64,11 @@ Phases (each passes or ends the script with a non-zero exit):
      plain-step derivative) against those of the plain step, K=64;
   4. drive the port's PickCube main path: ``make("PickCube-v1")``,
      ``reset``, then MPPI at H=50, K=4096 (sigma 0.6, temperature 0.3): one
-     warm-up solve and 3 timed solves, with K2's launch count read around
+     warm-up solve and 2 timed solves, with K2's launch count read around
      them;
   5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
      K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
-     0.1): one warm-up solve and 3 timed solves, 50 kernel launches each;
+     0.1): one warm-up solve and 2 timed solves, 50 kernel launches each;
      then the PlugCharger-v1, RollBall-v1 and
      RotateSingleObjectInHandLevel2-v1 paths at the bench shape (H=50,
      K=4096, sigma 0.6, temperature 0.3) the same way; then the
@@ -120,10 +120,24 @@ Phases (each passes or ends the script with a non-zero exit):
      under each EE mode (50 K1 and 50 K2 launches a solve); the scripted
      solutions (``[solutions]``): PullCubeTool-v1's K2 check and slice,
      every ported solution at B=1024 on K2 (success rate, env steps/s, one
-     K2 and one K1 launch a control step, final states finite), and
-     PickCube-v1 and FoldSuitcase-v1 at B=256 on K2 and on the plain step,
-     whose success rates must agree;
-  9. print one JSON line of the kernels (launches on their paths, time per
+     K2 and one K1 launch a control step, final states finite; the drawing
+     solutions of DrawTriangle-v1 and DrawSVG-v1 among them: the Panda
+     stick, K1 at n = 3), and PickCube-v1, FoldSuitcase-v1 and
+     DrawTriangle-v1 at B=256 on K2 and on the plain step, whose success
+     rates must agree;
+  9. the rest of the Panda family: K2 against the plain step at K=4096
+     (``[family]``, ``kernel_phase``) on PushT-v1, AssemblingKits-v1,
+     FMBAssembly1Easy-v1, DrawSVG-v1 (500 geomless dots in the input row),
+     PickSingleObject-v1 and FrankaMoveBenchmark-v1, with each scene's
+     slice, resident envs per SM and the dispatch's choice of K2; PushT-v1
+     MPPI at the bench shape (``[mppi]``: rollouts/s, K2's ms, bound and
+     share of the wall, device busy time and ops of a profiled solve); the
+     Franka benchmarks' ``env.step`` at B=4096, reward "none"
+     (``[envstep]``: env steps/s, K2's share); the reset surface at K=4096
+     (``[reset]``: a partial reset keeps the other envs bit for bit and
+     gives the named ones a whole reset's rows; ``reconfiguration_freq=2``
+     keeps, then resamples, PickSingleObject's objects);
+  10. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
      ``{"ok": true, "device": {...}}``. ``[lap]`` lines give each phase's
@@ -139,9 +153,9 @@ import sys
 import time
 
 K_CHECK = 4096
-# timed MPPI solves a path, after one warm-up (5 until PR 11; cut to keep
-# the whole run within its time limit as phases are added)
-TIMED_SOLVES = 3
+# timed MPPI solves a path, after one warm-up (5, then 3: cut to keep the
+# whole run within its time limit as phases are added)
+TIMED_SOLVES = 2
 # PickSingleYCB-v1 MPPI, BASELINE config #5 (the JAX package's
 # tools/solve_tasks.py:90-94)
 K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
@@ -155,11 +169,11 @@ K_SEAM = 64
 EPISODE_STEPS, EPISODE_TOL = 50, 1e-4
 # replays of the profiled device episode (a replay is ~11,300 device ops)
 PROFILED_STEPS = 10
-# the MPPI paths' bound counts every 10th launch of the warm-up solve
-# (rollout steps 0, 10, ..., 40; every 5th until PR 11): megakernel.work
-# reruns the plain step substep by substep, about two plain steps a launch
-# (PlugCharger 1.2 s)
-PATH_BOUND_EVERY = 10
+# the MPPI paths' bound counts every 25th launch of the warm-up solve
+# (rollout steps 0 and 25; every 5th, then every 10th, before phases were
+# added): megakernel.work reruns the plain step substep by substep, about
+# two plain steps a launch (PlugCharger 1.2 s)
+PATH_BOUND_EVERY = 25
 # kernel vs plain tolerances (tests/test_torch_pickcube.py, from
 # tests/test_megakernel.py:48-67): float32 on both sides, sums in another
 # order; contact impulses are newtons under a stiff implicit law
@@ -180,6 +194,8 @@ K1_TOL = 1e-4  # A = X Xᵀ + n I, float32, n <= 32; the IK systems of the EE mo
 # the scripted solutions: envs a solution runs on K2, and the envs of the
 # K2 / plain-step comparison of success rates
 K_SOL, K_SOL_AB = 1024, 256
+# timed env.step calls a Franka benchmark env takes after 5 warm-up steps
+ENVSTEP_STEPS = 50
 # K1 on non-PD systems (exact pivots): finite entries against the system's
 # largest |x|, and a diagonal system's entry by entry
 K1_REL_TOL = 1e-5
@@ -232,13 +248,14 @@ def profile_solve(planner, ps, state):
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         print("[profile] device time: not measured (no CUDA activity recorded)")
-        return
+        return {}
     n_kernels = sum(r[2] for r in rows)
     print(f"[profile] one solve: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"{n_kernels} device ops")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"[profile]   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    return dict(busy_ms=busy_us / 1e3, busy_share=busy_us / wall_us, device_ops=n_kernels)
 
 
 def pickcube_branches(env, plan, cst, loaded, depth):
@@ -447,6 +464,82 @@ def inhand_branches(env, plan, cst, loaded, depth):
         "object-finger capsule_hull loaded": held,
         "friction lam_t nonzero (capsule_hull)": lam_t[:, capsule_hull].any(1),
     }
+
+
+def _geom_points(plan, names, env, fn):
+    """(P,) points of pair function ``fn`` with a geom of the bodies
+    ``names`` on either side."""
+    import numpy as np
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    geoms = [g for n in names for g in env.model.geom_indices(n)]
+    side = np.isin(plan.pga, geoms) | np.isin(plan.pgb, geoms)
+    return torch.as_tensor(side & (plan.pfn == _FNS.index(fn)), device="cuda")
+
+
+def pusht_branches(env, plan, cst, loaded, depth):
+    """What must carry force in PushT contact states: the stick pressing a
+    side of the T (even envs) or the tabletop (odd envs), capsule_box; the
+    T on the table, box_box_onesided; friction on the T."""
+    import torch
+
+    even = torch.arange(loaded.shape[0], device="cuda") % 2 == 0
+    stick_t = _geom_points(plan, ["tee"], env, "capsule_box")
+    stick_table = _geom_points(plan, ["table-workspace"], env, "capsule_box")
+    t_table = _geom_points(plan, ["tee"], env, "box_box_onesided")
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    return {
+        "stick-T capsule_box loaded (even envs)": loaded[even][:, stick_t].any(1),
+        "stick-table capsule_box loaded (odd envs)": loaded[~even][:, stick_table].any(1),
+        "T-table box_box_onesided loaded": loaded[:, t_table].sum(1) >= 1,
+        "friction lam_t nonzero (T-table)": lam_t[:, t_table].any(1),
+    }
+
+
+def held_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the contact states of PickCube's
+    ``contact_state`` on other objects (FMBAssembly1Easy's 12 cm beam held
+    across its 3 cm width, PickSingleObject's boxes of 1.5-3 cm half sizes;
+    on the floor in every fourth env): PickCube's branches, with the
+    object-table points within the contact margin instead of loaded (the
+    grip lifts such an object off the table within the step in about half
+    the envs)."""
+    import torch
+
+    pfn = torch.as_tensor(plan.pfn, device="cuda")
+    robot = torch.as_tensor((plan.pra >= 0) | (plan.prb >= 0), device="cuda")
+    grasp = torch.arange(loaded.shape[0], device="cuda") % 4 != 3
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    margin = env.model.params.contact_margin
+    return {
+        "finger-object box_box_corners loaded": loaded[grasp][:, pfn == 2].sum(1) >= 4,
+        "object-table box_box_onesided active":
+            (depth[grasp][:, (pfn == 1) & ~robot] > -margin).sum(1) >= 1,
+        "fingertip-table box_box_onesided active":
+            (depth[grasp][:, (pfn == 1) & robot] > -margin).sum(1) >= 4,
+        "object-floor plane_box loaded": loaded[~grasp][:, pfn == 0].sum(1) >= 1,
+        "friction lam_t nonzero": lam_t[grasp].sum(1) >= 6,
+    }
+
+
+def draw_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the drawing contact states: the stick's tip
+    on the tabletop (capsule_box), with friction."""
+    stick_table = _geom_points(plan, ["table-workspace"], env, "capsule_box")
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    return {"stick-table capsule_box loaded": loaded[:, stick_table].any(1),
+            "friction lam_t nonzero": lam_t[:, stick_table].any(1)}
+
+
+def franka_branches(env, plan, cst, loaded, depth):
+    """What must carry force in FrankaMoveBenchmark contact states: the
+    fingertips on the ground (plane_box), with friction."""
+    ground = _geom_points(plan, ["ground"], env, "plane_box")
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    return {"fingertip-ground plane_box loaded": loaded[:, ground].sum(1) >= 2,
+            "friction lam_t nonzero": lam_t[:, ground].any(1)}
 
 
 def stack_phase(megakernel):
@@ -676,12 +769,12 @@ def forest_settle(env, kern, cst, ccmd, task, limit_gate):
     articulated object's dof, the share of envs in its open-limit band
     (within 0.01 of the upper limit, or past it: the limit spring acts);
     with ``limit_gate`` that share must be nonzero. Returns the first dof's
-    share."""
+    share (None in a scene without articulated objects)."""
     import torch
 
     sim = cst.sim
     for _ in range(10):
-        sim, _aux = kern(sim, ccmd, 5)
+        sim, _aux = kern(sim, ccmd, env.sim_steps_per_control)
     if not (torch.isfinite(sim.qpos).all() and torch.isfinite(sim.qvel).all()):
         fail(f"{task} settle from the contact states produced non-finite state")
     shares = []
@@ -696,7 +789,7 @@ def forest_settle(env, kern, cst, ccmd, task, limit_gate):
                   f"{float(sim.qpos[:, d].max()):.4f}]")
     if limit_gate and not shares[0] > 0:
         fail(f"{task}: no env's object reached its joint-limit band")
-    return shares[0]
+    return shares[0] if shares else None
 
 
 def art_branches(env, plan, cst, loaded, depth):
@@ -917,7 +1010,7 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
 
 
 def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
-                 contact_cmd="perturbed", inhand=False, limit_gate=False):
+                 contact_cmd="perturbed", inhand=False, limit_gate=False, per_env=False):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
     starts apart may end from its starting height after 10 control steps.
@@ -927,6 +1020,12 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     moved by 0.05 rad make the plain float32 step itself leave the
     tolerances of a float64 step in 9-15 % of the envs (CPU, K=512; PERF.md
     section 6), beyond the referee rule's share, so those take their own.
+    ``per_env``: the refereed envs are held one by one against a float64
+    plain step (``disagreement``'s ``per_env`` rule, the control suite's
+    floor contacts'): the Panda stick pressed into the T or the table, held
+    by the arm's drives, puts the float32 plain step beyond the float64
+    step's per-point force tolerance in 10-16 % of the contact envs, and
+    the kernel in fewer, but in other envs (PERF.md §6).
     ``inhand``: the Allegro scenes, where the object is dropped onto the
     fingers at reset. Reset envs whose object touches nothing in the step
     are held in full, the rest refereed; the referee's share counts only
@@ -942,10 +1041,15 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     from maniskill_tpu_torch._cuda import event_ms
 
     ill_rule = inhand
-    env = mtt.make(task, num_envs=k, reward_mode="dense")
+    # the Franka benchmarks take reward "none" only
+    modes = mtt.REGISTERED_ENVS[task]["cls"].SUPPORTED_REWARD_MODES
+    env = mtt.make(task, num_envs=k, reward_mode="dense" if "dense" in modes else "none")
     task = f"{task} K={k}"
     env.reset(seed=0)
+    if env.kernel is None:
+        fail(f"{task}: the env's physics dispatch did not choose K2")
     kern, plan = env.kernel, env.kernel.plan
+    n_ctrl = env.sim_steps_per_control  # sim steps a control step
     st = env._state
     if "model_id" in st.extras:  # per-env objects: every library object present
         n_models = len(env._lib) if hasattr(env, "_lib") else len(env.MODELS)
@@ -961,7 +1065,8 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
             cmd.target_qpos.shape, generator=gen, device="cuda"))
 
     def compare(label, sim, cmd, referee, kinds=None):
-        return compare_step(kern, task, label, sim, cmd, referee, ill_rule, kinds)
+        return compare_step(kern, task, label, sim, cmd, referee, ill_rule, kinds, n_ctrl,
+                            per_env)
 
     # a) reset states: cubes rest on the table, the hand is far from them;
     # every env must agree. StackCube's placement rule (the JAX package's:
@@ -981,7 +1086,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     cmd = perturbed(st.cmd)
     kinds = None
     if inhand:
-        overlap = touched_in_step(kern, st.sim, cmd, 5)
+        overlap = touched_in_step(kern, st.sim, cmd, n_ctrl)
         print(f"[check] {task} reset: the object touches the hand within the step in "
               f"{int(overlap.sum())} of {k} envs (refereed)")
     elif env.model.n_free == 0:
@@ -997,7 +1102,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
         # env is held in full
         cross = torch.as_tensor((plan.pra >= 0) & (plan.prb >= 0), device="cuda")
         inside = (depth0[:, cross] > 0).any(1)
-        overlap = touched_in_step(kern, st.sim, cmd, 5) | inside
+        overlap = touched_in_step(kern, st.sim, cmd, n_ctrl) | inside
         print(f"[check] {task} reset: {int(overlap.sum())} of {k} envs refereed: "
               f"{int(inside.sum())} start with a robot link inside the object, "
               f"{int((overlap & ~inside).sum())} more carry force within the step")
@@ -1029,7 +1134,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     # apart stay on the table
     sim = st.sim
     for _ in range(10):
-        sim, _aux = kern(sim, st.cmd, 5)
+        sim, _aux = kern(sim, st.cmd, n_ctrl)
     if not (torch.isfinite(sim.qpos).all() and torch.isfinite(sim.free_pose).all()):
         fail(f"{task} settle run produced non-finite state")
     if inhand:
@@ -1051,10 +1156,10 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
               f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start "
               "apart")
 
-    # kernel time per launch (one control step: 5 sim steps of the scene's
-    # substeps), its bound and the plain step's time, on both input sets;
-    # the kernels line reports the contact states
-    n_sub = 5 * env.model.params.substeps
+    # kernel time per launch (one control step: its sim steps of the
+    # scene's substeps), its bound and the plain step's time, on both input
+    # sets; the kernels line reports the contact states
+    n_sub = n_ctrl * env.model.params.substeps
     occ = occupancy_line(kern, task)
     timing = {}
     for label, (s_in, c_in) in dict(reset=(st.sim, cmd), contact=(cst.sim, ccmd)).items():
@@ -1062,7 +1167,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
         kern.launch(plane, n_sub)
         same_bits(kern, task, label, plane, n_sub)
         k_ms = event_ms(lambda: kern.launch(plane, n_sub), 20)
-        p_ms = event_ms(lambda: kern.plain(s_in, c_in, 5), 5)
+        p_ms = event_ms(lambda: kern.plain(s_in, c_in, n_ctrl), 3)
         nbytes, ops, counts = megakernel.work(plan, s_in, c_in, n_sub)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -1074,7 +1179,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     out = dict(max_err=max(err_reset, err_contact), max_err_held=held_reset, ms=k_ms,
                plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations") | occ
-    if env.model.n_free == 0:
+    if env.model.n_free == 0 and limit_share is not None:
         out["limit_band_share"] = limit_share
     return out
 
@@ -1275,7 +1380,8 @@ def mppi_phase(mtt, megakernel, MPPI, MPPIConfig, task, obs_dim, min_finite=1.0,
               f"{k1_ms / TIMED_SOLVES:.3f} ms/solve ({k1_ms / len(k1_spans):.4f} ms per launch, "
               f"CUDA events), {100 * k1_ms / (dt * 1e3):.2f} % of the wall time", flush=True)
     if profile:
-        profile_solve(planner, ps, env1._state)
+        out |= profile_solve(planner, ps, env1._state)
+    out["wall_share"] = kernel_busy_ms / (dt * 1e3)
     return out
 
 
@@ -1773,7 +1879,7 @@ def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
         del env, st, st2, A, b, systems
         torch.cuda.empty_cache()
         path = mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42,
-                          control_mode=mode, bound_every=25, profile=n == 6)
+                          control_mode=mode, bound_every=25, profile=False)
         print(f"[ee] PickCube-v1 {mode} MPPI at the bench shape: {path['rps']:.1f} rollouts/s, K2 "
               f"{path['path_ms']:.4f} ms a launch, K1 (n={n}) {path['k1_path_ms']:.4f} ms a "
               f"launch, {path['k1_launches'] // (TIMED_SOLVES + 1)} K1 launches a solve",
@@ -1793,10 +1899,11 @@ def solutions_phase(mtt, megakernel, solve_kernel):
     every ported scripted solution at K_SOL envs on K2 (seed 0, no reset
     noise): the success rate, env steps/s (control steps x envs over the
     synchronized wall), K2 and K1 launched once a control step, the final
-    states finite; then PickCube-v1 and FoldSuitcase-v1 at K_SOL_AB envs on
-    K2 and on the plain step (``sim_backend="torch"``), the same seed: the
-    success rates may differ by 3 binomial standard errors of the
-    difference plus 0.02. Returns the kernels line's numbers."""
+    states finite; then PickCube-v1, FoldSuitcase-v1 and DrawTriangle-v1 at
+    K_SOL_AB envs on K2 and on the plain step (``sim_backend="torch"``), the
+    same seed: the success rates may differ by 3 binomial standard errors
+    of the difference plus 0.02. Returns the kernels line's numbers, with
+    each solution's success rate, env steps/s and K2 launches."""
     import math
 
     import torch
@@ -1848,24 +1955,185 @@ def solutions_phase(mtt, megakernel, solve_kernel):
               f"success {rate:.4f} ({int(success.sum())}/{k}), {steps} control steps in "
               f"{dt:.1f} s, {steps * k / dt:.1f} env steps/s; K2 launches {k2}, K1 "
               f"{solve_kernel.launches}", flush=True)
-        return rate, k2
+        return rate, k2, steps * k / dt
 
     out["launches"] = 0
-    rates = {}
+    rates, runs = {}, {}
     for task in SOLUTIONS:
-        rates[task], k2 = run(task, K_SOL)
+        rates[task], k2, rate = run(task, K_SOL)
+        runs[task] = dict(success=rates[task], launches=k2, env_steps_per_s=rate)
         out["launches"] += k2
         torch.cuda.empty_cache()
-    for task in ("PickCube-v1", "FoldSuitcase-v1"):
-        p_k, _ = run(task, K_SOL_AB)
-        p_p, _ = run(task, K_SOL_AB, backend="torch")
+    for task in ("PickCube-v1", "FoldSuitcase-v1", "DrawTriangle-v1"):
+        p_k, *_ = run(task, K_SOL_AB)
+        p_p, *_ = run(task, K_SOL_AB, backend="torch")
         se = math.sqrt((p_k * (1 - p_k) + p_p * (1 - p_p)) / K_SOL_AB)
         print(f"[solutions] {task} B={K_SOL_AB}: K2 {p_k:.4f} against the plain step "
               f"{p_p:.4f} (allowed {3 * se + 0.02:.4f})", flush=True)
         if abs(p_k - p_p) > 3 * se + 0.02:
             fail(f"[solutions] {task}: success on K2 {p_k:.4f}, on the plain step {p_p:.4f}")
     out["success"] = rates
+    out["runs"] = runs
     return out
+
+
+def family_phase(mtt, engine, megakernel):
+    """[family]: K2 against its plain step on the Panda family's new scenes
+    at K_CHECK envs (``kernel_phase``: reset states, contact states, a
+    10-control-step settle, time, bound, slice and resident envs per SM,
+    the dispatch's choice of K2): PushT-v1 (the stick's capsule against the
+    T's two boxes and the table; the T's own bar-stem pair is skipped in
+    the overlap mask, as PlugCharger's), AssemblingKits-v1 (a piece sized
+    per env beside a four-box board), FMBAssembly1Easy-v1 (a beam, a board
+    with pads), DrawSVG-v1 (500 geomless kinematic dots in the input row:
+    the widest row), PickSingleObject-v1 (a box sized and weighed per env)
+    and FrankaMoveBenchmark-v1 (a lone Panda over a ground plane, F = 0,
+    two sim steps a control step). The contact states take their own
+    command (the arm holds); the stick's (PushT, DrawSVG) are refereed
+    env by env against a float64 plain step (``kernel_phase``'s
+    ``per_env``: the stick pressed into the T or the table, held by the
+    arm's drives, puts either float32 step beyond the float64 step's
+    per-point force tolerance in 10-16 % of the envs). Returns each task's
+    numbers."""
+    import torch
+
+    out = {}
+    for task, branches in (("PushT-v1", pusht_branches), ("AssemblingKits-v1", pickcube_branches),
+                           ("FMBAssembly1Easy-v1", held_branches),
+                           ("DrawSVG-v1", draw_branches),
+                           ("PickSingleObject-v1", held_branches),
+                           ("FrankaMoveBenchmark-v1", franka_branches)):
+        out[task] = kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK,
+                                 contact_cmd="own", per_env=task in ("PushT-v1", "DrawSVG-v1"))
+        torch.cuda.empty_cache()
+    return out
+
+
+def envstep_phase(mtt):
+    """[envstep]: FrankaMoveBenchmark-v1 and FrankaPickCubeBenchmark-v1 at
+    K_CHECK envs, reward "none", through ``env.step``: actions uniform in
+    the action box from a seeded generator, 5 warm-up steps, then
+    ENVSTEP_STEPS timed steps (synchronized wall), K2 timed by CUDA events
+    around each launch; one K2 launch a step, the rewards zeros, obs and
+    state finite. Returns each task's numbers."""
+    import torch
+
+    out = {}
+    for task in ("FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1"):
+        env = mtt.make(task, num_envs=K_CHECK, reward_mode="none")
+        env.reset(seed=0)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(8)
+        lo, hi = (torch.as_tensor(b, dtype=torch.float32, device="cuda")
+                  for b in env.single_action_space)
+        actions = [lo + (hi - lo) * torch.rand((K_CHECK, env.action_dim), generator=gen,
+                                               device="cuda")
+                   for _ in range(ENVSTEP_STEPS + 5)]
+        for a in actions[:5]:
+            env.step(a)
+        kern = env.kernel
+        spans, launch = [], kern.launch
+
+        def timed_launch(plane, n_substeps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = launch(plane, n_substeps)
+            b.record()
+            spans.append((a, b))
+            return res
+
+        kern.launch = timed_launch
+        kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in actions[5:]:
+            obs, reward, *_ = env.step(a)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        del kern.launch
+        k2_ms = sum(a.elapsed_time(b) for a, b in spans)
+        if kern.launches != ENVSTEP_STEPS:
+            fail(f"[envstep] {task}: {ENVSTEP_STEPS} steps launched K2 {kern.launches} times")
+        if not (torch.isfinite(obs).all() and torch.isfinite(env._state.sim.qpos).all()):
+            fail(f"[envstep] {task}: non-finite obs or state")
+        if bool(reward.any()):
+            fail(f"[envstep] {task}: reward mode none gave nonzero rewards")
+        rate = ENVSTEP_STEPS * K_CHECK / dt
+        print(f"[envstep] {task} B={K_CHECK}: {rate:.1f} env steps/s ({1e3 * dt / ENVSTEP_STEPS:.3f} "
+              f"ms a step, {ENVSTEP_STEPS} steps); K2 {kern.launches} launches, "
+              f"{k2_ms / len(spans):.4f} ms a launch (CUDA events), "
+              f"{100 * k2_ms / (dt * 1e3):.1f} % of the wall", flush=True)
+        out[task] = dict(rate=rate, launches=kern.launches, path_ms=k2_ms / len(spans),
+                         wall_share=k2_ms / (dt * 1e3))
+        del env, actions
+        torch.cuda.empty_cache()
+    return out
+
+
+def reset_phase(mtt):
+    """[reset]: the reset surface on the card. PickSingleObject-v1 at
+    K_CHECK envs with ``reconfiguration_freq=2``: after a reset and 3
+    steps, ``reset(options={"env_idx": <the even envs>})`` keeps every
+    state field of the odd envs bit for bit, and gives the even envs the
+    rows of a whole reset from the same seed and previous state (elapsed
+    steps 0, episode count 2, their objects kept); then on a fresh env a
+    second ``reset()`` keeps every env's size and mass and a third
+    resamples them (sizes new in at least 99 % of the envs)."""
+    import torch
+    from maniskill_tpu_torch.physics.model import tree_map
+
+    env = mtt.make("PickSingleObject-v1", num_envs=K_CHECK, reward_mode="dense",
+                   reconfiguration_freq=2)
+    env.reset(seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for _ in range(3):
+        env.step(2 * torch.rand((K_CHECK, env.action_dim), generator=gen, device="cuda") - 1)
+    before = env._state
+    even = torch.arange(K_CHECK, device="cuda") % 2 == 0
+    env.reset(seed=5, options={"env_idx": torch.nonzero(even)[:, 0]})
+    after = env._state
+    whole = env._reset_all(torch.Generator(device="cuda").manual_seed(5), before)[0]
+    diffs = []
+
+    def check(a, b, w):
+        if not torch.equal(a[~even], b[~even]):
+            diffs.append("kept envs changed")
+        if not torch.equal(a[even], w[even]):
+            diffs.append("reset envs differ from a whole reset")
+        return a
+
+    tree_map(check, after, before, whole)
+    count = after.extras["episode_count"]
+    if diffs or not (bool((after.elapsed_steps[even] == 0).all())
+                     and bool((count[even] == 2).all()) and bool((count[~even] == 1).all())):
+        fail(f"[reset] partial reset: {sorted(set(diffs))}, elapsed of the reset envs "
+             f"{after.elapsed_steps[even].unique().tolist()}, episode counts "
+             f"{count.unique().tolist()}")
+    if not torch.equal(after.sim.geom_size[even], before.sim.geom_size[even]):
+        fail("[reset] partial reset: reconfiguration_freq=2 did not keep the reset envs' objects")
+    print(f"[reset] PickSingleObject-v1 K={K_CHECK}: reset(options={{'env_idx': the "
+          f"{int(even.sum())} even envs}}) after 3 steps: the odd envs bit-identical in every "
+          "field, the even envs the rows of a whole reset (elapsed 0, episode 2, objects kept)",
+          flush=True)
+    env = mtt.make("PickSingleObject-v1", num_envs=K_CHECK, reward_mode="dense",
+                   reconfiguration_freq=2)
+    g = env.model.geom_indices("cube")[0]
+    sizes = []
+    for _ in range(3):
+        env.reset()
+        sim = env._state.sim
+        sizes.append((sim.geom_size[:, g].clone(), sim.free_mass[:, env.cube].clone()))
+    kept = torch.equal(sizes[1][0], sizes[0][0]) and torch.equal(sizes[1][1], sizes[0][1])
+    new = float((sizes[2][0] != sizes[1][0]).any(1).float().mean())
+    print(f"[reset] PickSingleObject-v1 reconfiguration_freq=2: the second reset kept every "
+          f"env's size and mass: {kept}; the third drew new sizes in {100 * new:.2f} % of "
+          f"the envs", flush=True)
+    if not kept or new < 0.99:
+        fail("[reset] reconfiguration_freq=2 did not keep, then resample, the objects")
+    del env, before, after, whole
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1979,12 +2247,14 @@ def main():
     # ---- 5. the PickSingleYCB path: MPPI at config #5 ----
     torch.cuda.empty_cache()
     ycb |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickSingleYCB-v1",
-                      46, num_samples=K_YCB, sigma=SIGMA_YCB, temperature=TEMP_YCB)
+                      46, num_samples=K_YCB, sigma=SIGMA_YCB, temperature=TEMP_YCB,
+                      profile=False)
 
     lap("5b")
     # ---- 5b. the PlugCharger and RollBall paths: MPPI at the bench shape ----
     torch.cuda.empty_cache()
-    plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1", 39)
+    plug |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PlugCharger-v1", 39,
+                       profile=False)
     roll |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "RollBall-v1", 44,
                        profile=False)
 
@@ -2010,7 +2280,7 @@ def main():
     # zero weight, and half must stay finite
     torch.cuda.empty_cache()
     humanoid |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                           "MS-HumanoidStand-v1", 54, min_finite=0.5)
+                           "MS-HumanoidStand-v1", 54, min_finite=0.5, profile=False)
     cartpole |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
                            "MS-CartpoleBalance-v1", 10, profile=False)
     hopper |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
@@ -2022,13 +2292,14 @@ def main():
     # PushCube episodes: the device loop (one CUDA graph a control step)
     # against the host loop ----
     torch.cuda.empty_cache()
-    # the bound from every 40th launch of the warm-up solve (rollout steps
-    # 0 and 40; every 20th until PR 11): megakernel.work at K=16384 takes
-    # seconds a launch
+    # the bound from the warm-up solve's first launch (every 20th, then
+    # every 40th, before phases were added): megakernel.work at K=16384
+    # takes seconds a launch
     peg |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                      "PegInsertionSide-v1", 43, bound_every=40)
+                      "PegInsertionSide-v1", 43, bound_every=80)
     torch.cuda.empty_cache()
-    poke |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PokeCube-v1", 42)
+    poke |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PokeCube-v1", 42,
+                       profile=False)
     push |= episode_phase(mtt, planners)
 
     lap("6")
@@ -2050,6 +2321,25 @@ def main():
     torch.cuda.empty_cache()
     lap("8 [solutions]")
     sols = solutions_phase(mtt, megakernel, solve_kernel)
+
+    lap("9 [family]")
+    # ---- 9. the rest of the Panda family: K2 on the new scenes, PushT MPPI,
+    # the Franka benchmarks' env steps, the reset surface ----
+    torch.cuda.empty_cache()
+    family = family_phase(mtt, engine, megakernel)
+    lap("9 [mppi]")
+    pusht = family["PushT-v1"] | mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
+                                            "PushT-v1", 31)
+    print(f"[mppi] PushT-v1 MPPI at the bench shape: {pusht['rps']:.1f} rollouts/s, K2 "
+          f"{pusht['path_ms']:.4f} ms a launch (bound {pusht['path_bound_ms']:.5f} ms), "
+          f"{100 * pusht['wall_share']:.1f} % of the wall; device busy "
+          f"{pusht.get('busy_ms', float('nan')):.1f} ms and {pusht.get('device_ops', 0)} device "
+          "ops in the profiled solve", flush=True)
+    torch.cuda.empty_cache()
+    lap("9 [envstep]")
+    envstep = envstep_phase(mtt)
+    lap("9 [reset]")
+    reset_phase(mtt)
     lap("done")
     print(f"[done] every phase passed, {time.perf_counter() - t_start:.1f} s with the builds",
           flush=True)
@@ -2071,6 +2361,8 @@ def main():
                                             "graph_k2_ms_each", "graph_busy_ms_per_replay")
                     if k in numbers}
 
+    draw = [sols["runs"][t] for t in ("DrawTriangle-v1", "DrawSVG-v1")]
+    draw_k2 = sum(r["launches"] for r in draw)  # K1's too: one each a control step
     # K2's ms, max_abs_err and bound_ms: phase 2's contact states at the
     # path's K; path_ms and path_bound_ms: the MPPI path's own launches
     k2_src, k2_tpu = "maniskill_tpu_torch/csrc/megakernel.cu", "maniskill_tpu/physics/megakernel.py:494"
@@ -2123,7 +2415,29 @@ def main():
         entry("solve_psd", k1_src, k1_tpu, k1_ee[3], k1_ee[3]["library_ms"])
         | {"inputs": f"n=3, K={K_CHECK}: the pd_ee_delta_pos IK systems of PickCube-v1 reset "
                      f"states; launches: MPPI H=50, K=4096, {TIMED_SOLVES + 1} solves; path_ms: "
-                     f"a launch in those solves"},
+                     f"a launch in those solves; draw_launches: one a control step of the "
+                     f"DrawTriangle-v1 and DrawSVG-v1 solutions at B={K_SOL}",
+           "draw_launches": draw_k2},
+        entry("megakernel_step", k2_src, k2_tpu, pusht)
+        | {"inputs": f"PushT-v1, K={K_CHECK}, contact states; launches and path_*: MPPI H=50, "
+                     f"K=4096; family: the kernel checks of the scenes no path of this run "
+                     f"launches",
+           "family": {t: {"max_abs_err": family[t]["max_err"]}
+                      | {k: family[t][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "slice_bytes", "envs_per_sm")}
+                      for t in ("AssemblingKits-v1", "FMBAssembly1Easy-v1",
+                                "PickSingleObject-v1")}},
+        entry("megakernel_step", k2_src, k2_tpu, family["DrawSVG-v1"] | {"launches": draw_k2})
+        | {"inputs": f"DrawSVG-v1, K={K_CHECK}, contact states (500 dots in the input row); "
+                     f"launches: one a control step of the DrawTriangle-v1 and DrawSVG-v1 "
+                     f"solutions at B={K_SOL}"},
+        entry("megakernel_step", k2_src, k2_tpu, family["FrankaMoveBenchmark-v1"]
+              | {"launches": sum(v["launches"] for v in envstep.values()),
+                 "path_ms": envstep["FrankaMoveBenchmark-v1"]["path_ms"]})
+        | {"inputs": f"FrankaMoveBenchmark-v1, K={K_CHECK}, contact states (2 sim steps a "
+                     f"launch); launches: {ENVSTEP_STEPS} timed env.step calls each of "
+                     f"FrankaMoveBenchmark-v1 and FrankaPickCubeBenchmark-v1 at B={K_CHECK}; "
+                     f"path_ms: a launch in FrankaMoveBenchmark's"},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,23 @@
 
 Port of ``maniskill_tpu/envs/base_env.py``: ``EnvState``, ``TaskContext``,
 ``reset``, the per-step core (``_step`` for ``step``, ``_rollout_step`` for
-planners) and the ``state``/``state_dict``/``none`` obs modes. The JAX
-package writes single-env functions and vmaps them; here every function
-takes the batch dimension K leading. A task sets its solver parameters by
-overriding ``_sim_params`` (the JAX ``sim_params`` keyword's default). Not
-ported yet: the visual obs modes, the sparse reward, the robots and control
-modes the agents lack, partial resets, state-dict get/set and runtime
-drive-gain changes.
+planners), the ``state``/``state_dict``/``none`` obs modes and the four
+reward modes (``dense``, ``normalized_dense``, ``sparse``: success minus
+fail, ``none``: zeros). The JAX package writes single-env functions and
+vmaps them; here every function takes the batch dimension K leading. A
+task sets its solver parameters by overriding ``_sim_params`` (the JAX
+``sim_params`` keyword's default).
+
+``reset`` follows the JAX package's surface (``envs/base_env.py:401-437``,
+``:668-720``): the first reset starts every env from scratch; a later one
+hands the previous state to ``_initialize_episode_prev`` (a task keeps
+what persists across episodes there, as ``reconfiguration_freq`` does);
+``reset(options={"env_idx": ...})`` resets only the named envs, from their
+previous state, and keeps every other env's state bit for bit. As in the
+JAX package, the obs and info that a partial reset returns are those of
+the freshly reset states of all envs, the kept ones included. Not ported
+yet: the visual obs modes, the robots and control modes the agents lack,
+state-dict get/set and runtime drive-gain changes.
 
 The physics dispatch takes the CUDA mega-kernel (``physics/megakernel.py``)
 for every batch of a model it supports, through ``KernelStep``: the kernel
@@ -34,7 +44,7 @@ from ..math.rotations import _cross
 from ..physics import megakernel
 from ..physics.engine import body_velocities, make_force_query, make_step_fn, robot_fk
 from ..physics.model import (DriveCmd, SceneModel, SceneSpecBuilder, SimParams,
-                             SimState, _Struct)
+                             SimState, _Struct, tree_map)
 
 
 def resolve_device(device) -> torch.device:
@@ -119,7 +129,7 @@ class BaseEnv:
     ``evaluate``, ``_get_obs_extra`` and the reward hooks."""
 
     SUPPORTED_OBS_MODES = ("state", "state_dict", "none")
-    SUPPORTED_REWARD_MODES = ("normalized_dense", "dense")
+    SUPPORTED_REWARD_MODES = ("normalized_dense", "dense", "sparse", "none")
     DEFAULT_ROBOT = "panda"
     SIM_FREQ = 100
     CONTROL_FREQ = 20
@@ -188,6 +198,13 @@ class BaseEnv:
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
         return state
 
+    def _initialize_episode_prev(self, state: EnvState, gen: torch.Generator,
+                                 prev: EnvState) -> EnvState:
+        """Episode init with the env's previous state ``prev`` (a reset of a
+        live env); override for what persists across episodes. The default
+        ignores ``prev``."""
+        return self._initialize_episode(state, gen)
+
     def evaluate(self, state: EnvState, ctx: TaskContext) -> Dict[str, torch.Tensor]:
         return dict(success=torch.zeros(self.num_envs, dtype=torch.bool,
                                         device=self.device))
@@ -209,6 +226,13 @@ class BaseEnv:
 
     def compute_normalized_dense_reward(self, state, action, info, ctx):
         return self.compute_dense_reward(state, action, info, ctx)
+
+    def compute_sparse_reward(self, state, action, info, ctx) -> torch.Tensor:
+        """``info["success"] - info["fail"]`` (JAX ``base_env.py:377-382``)."""
+        r = info["success"].to(torch.float32)
+        if "fail" in info:
+            r = r - info["fail"].to(torch.float32)
+        return r
 
     def _uniform(self, gen: torch.Generator, shape, lo, hi) -> torch.Tensor:
         """Draws from U[lo, hi) of ``shape`` with ``gen``; ``lo`` and ``hi``
@@ -244,7 +268,9 @@ class BaseEnv:
             state = state.replace(qpos=state.qpos + noise * mask)
         return state
 
-    def _reset_all(self, gen: torch.Generator):
+    def _reset_all(self, gen: torch.Generator, prev: Optional[EnvState] = None):
+        """Every env reset: from scratch, or from ``prev``, its previous
+        state (JAX ``_reset_one``)."""
         K = self.num_envs
         sim = self._initial_sim_state(K, gen)
         zeros = torch.zeros_like(sim.qpos)
@@ -254,7 +280,10 @@ class BaseEnv:
             elapsed_steps=torch.zeros(K, dtype=torch.int32, device=self.device),
             extras=self._default_extras(K),
         )
-        state = self._initialize_episode(state, gen)
+        if prev is None:
+            state = self._initialize_episode(state, gen)
+        else:
+            state = self._initialize_episode_prev(state, gen, prev)
         state = state.replace(cmd=self.agent.controller.reset(state.sim.qpos))
         ctx = TaskContext(self, state)
         info = self.evaluate(state, ctx)
@@ -298,7 +327,11 @@ class BaseEnv:
     def _get_reward(self, state, action, info, ctx):
         if self.reward_mode == "dense":
             return self.compute_dense_reward(state, action, info, ctx)
-        return self.compute_normalized_dense_reward(state, action, info, ctx)
+        if self.reward_mode == "normalized_dense":
+            return self.compute_normalized_dense_reward(state, action, info, ctx)
+        if self.reward_mode == "sparse":
+            return self.compute_sparse_reward(state, action, info, ctx)
+        return torch.zeros(state.sim.qpos.shape[0], device=self.device)
 
     def _get_obs(self, state: EnvState, ctx: TaskContext, info):
         if self.obs_mode == "none":
@@ -310,13 +343,23 @@ class BaseEnv:
         return flatten_state_dict(obs)
 
     # -- stateful batched API ----------------------------------------------
-    def reset(self, seed: Optional[int] = None):
+    def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
+        """Reset every env (from its previous state after the first reset),
+        or with ``options={"env_idx": ...}`` the named envs only."""
         if seed is None:
             seed = 0 if self._main_seed is None else self._main_seed + 1
         self._main_seed = seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self._state, obs, info = self._reset_all(gen)
+        prev = self._state
+        env_idx = (options or {}).get("env_idx")
+        new, obs, info = self._reset_all(gen, prev)
+        if env_idx is not None and prev is not None:
+            mask = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+            mask[torch.as_tensor(env_idx, device=self.device)] = True
+            new = tree_map(lambda n, o: torch.where(mask.view((-1,) + (1,) * (n.ndim - 1)), n, o),
+                           new, prev)
+        self._state = new
         return obs, info
 
     def step(self, action):

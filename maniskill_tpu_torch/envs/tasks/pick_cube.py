@@ -169,20 +169,22 @@ class PickCubeEnv(BaseEnv):
         sim = state.sim
         K = sim.qpos.shape[0]
 
-        half = sim.geom_size[:, self.model.geom_indices("cube")[0]]  # (K, 3)
-        pose = sim.free_pose[:, self.cube]
+        held = getattr(self, "held_body", "cube")  # the free body grasped
+        body = self.model.free_index[held]
+        half = sim.geom_size[:, self.model.geom_indices(held)[0]]  # (K, 3)
+        pose = sim.free_pose[:, body]
         qpos = grasp_qpos(self, sim.qpos, pose, gen)
         width = _closing_half(pose, half)
         qpos[:, 7:9] = self._uniform(gen, (K, 1), width - 0.001, width)
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
         free_vel = sim.free_vel.clone()
-        free_vel[:, self.cube] = 0.05 * torch.randn(
+        free_vel[:, body] = 0.05 * torch.randn(
             (K, 6), generator=gen, device=dev)
         free_pose = sim.free_pose.clone()
         floor = torch.arange(K, device=dev) % 4 == 3
         table = TableSceneBuilder
-        free_pose[floor, self.cube, 0] = float(table.TABLE_CENTER[0] + table.TABLE_HALF[0]) + 0.1
-        free_pose[floor, self.cube, 2] = half[floor, 2] - TABLE_HEIGHT
+        free_pose[floor, body, 0] = float(table.TABLE_CENTER[0] + table.TABLE_HALF[0]) + 0.1
+        free_pose[floor, body, 2] = half[floor, 2] - TABLE_HEIGHT
         sim = sim.replace(qpos=qpos, qvel=qvel, free_pose=free_pose, free_vel=free_vel)
         target = qpos.clone()
         target[:, 7:9] = 0.0  # the arm holds its pose, the gripper shuts

@@ -9,9 +9,9 @@ the procedural 8-hull library (``physics/hulls.py``
 ``standard_object_library``). The body keeps the name "cube", so
 PickCube's grasp checker, evaluate and obs extras apply as they are.
 
-Not ported: the ``reconfiguration_freq`` branch (an object kept across
-episodes, ``_init_with_prev`` with ``prev``), which needs the auto-reset
-path the port does not have yet; every reset draws a new object.
+``reconfiguration_freq`` (JAX ``_init_with_prev``, ``:80-111``): a reset of
+a live env keeps its object unless the env's ``episode_count`` is a
+multiple of the frequency (1, the default: a new object every reset).
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ def set_hull_library(env, lib):
 class PickSingleHullEnv(PickCubeEnv):
     density = 1000.0
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, reconfiguration_freq: int = 1, **kwargs):
+        self.reconfiguration_freq = max(int(reconfiguration_freq), 1)
         set_hull_library(self, standard_object_library())
         super().__init__(*args, **kwargs)
 
@@ -67,13 +68,34 @@ class PickSingleHullEnv(PickCubeEnv):
     def compute_normalized_dense_reward(self, state, action, info, ctx):
         return self.compute_dense_reward(state, action, info, ctx) / 6.0
 
+    def _default_extras(self, batch):
+        zeros = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        return dict(super()._default_extras(batch), episode_count=zeros, model_id=zeros)
+
     def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
-        """PickCube's placement, then a library object per env (JAX
-        ``_init_with_prev`` with ``prev=None``, ``:80-111``)."""
+        return self._init_with_prev(state, gen, None)
+
+    def _initialize_episode_prev(self, state, gen, prev):
+        return self._init_with_prev(state, gen, prev)
+
+    def _draw_model(self, gen: torch.Generator, K: int) -> torch.Tensor:
+        """New objects' library rows (K,)."""
+        return torch.randint(0, len(self._lib), (K,), generator=gen, device=self.device)
+
+    def _init_with_prev(self, state: EnvState, gen: torch.Generator, prev) -> EnvState:
+        """PickCube's placement, then a library object per env: a new one,
+        or with ``prev`` the previous episode's where the env's episode
+        count is not a multiple of ``reconfiguration_freq`` (JAX
+        ``_init_with_prev``, ``:80-111``)."""
         state = super()._initialize_episode(state, gen)
         K = state.sim.qpos.shape[0]
         dev = self.device
-        mid = torch.randint(0, len(self._lib), (K,), generator=gen, device=dev)
+        mid = self._draw_model(gen, K)
+        count = torch.zeros(K, dtype=torch.int32, device=dev)
+        if prev is not None:
+            count = prev.extras["episode_count"]
+            resample = count % self.reconfiguration_freq == 0
+            mid = torch.where(resample, mid, prev.extras["model_id"].to(mid.dtype))
 
         def table(name):
             return torch.as_tensor(getattr(self, name), device=dev)[mid]
@@ -90,9 +112,7 @@ class PickSingleHullEnv(PickCubeEnv):
         # rest at the object's own height (PickCube placed a 2 cm cube)
         free_pose[:, self.cube, 2] = aabb[:, 2]
         geom_size[:, self._geom] = aabb
-        extras = dict(state.extras,
-                      episode_count=torch.ones(K, dtype=torch.int32, device=dev),
-                      model_id=mid.to(torch.int32))
+        extras = dict(state.extras, episode_count=count + 1, model_id=mid.to(torch.int32))
         return state.replace(sim=sim.replace(
             hull_verts=hull_verts, hull_faces=hull_faces, free_mass=free_mass,
             free_inertia=free_inertia, free_pose=free_pose, geom_size=geom_size),

@@ -9,8 +9,8 @@ free, kinematic and joint state in one copy), and the env runs the step on
 the device (the CUDA mega-kernel, with the IK step's solve kernel, on a
 card). Ported: the solutions of PickCube, PushCube, PullCube, StackCube,
 RollBall, PickSingleHull, LiftPegUpright, PegInsertionSide, PlugCharger,
-PullCubeTool and FoldSuitcase. DrawTriangle/DrawSVG (``panda_stick``) and
-PickCubeYCB wait for their tasks.
+PullCubeTool, DrawTriangle, DrawSVG (the ``panda_stick``: 3 actions under
+``pd_ee_delta_pos``) and FoldSuitcase. PickCubeYCB waits for its task.
 
 ``recorder``: an object with the env's ``step`` (a trajectory recorder
 wrapping the env); ``None`` steps the env itself.
@@ -652,6 +652,28 @@ def solve_pull_cube_tool(env, recorder=None):
     return sv.success()
 
 
+def solve_draw_outline(env, recorder=None, settle_steps: int = 2):
+    """DrawTriangle-v1 / DrawSVG-v1 (JAX ``solutions.py:640-669``): lower
+    the stick to the canvas over the first outline point and trace each
+    env's outline (``extras["outline"]``, read once), then back to the
+    first point to close the loop."""
+    assert env.control_mode == "pd_ee_delta_pos"
+    sv = _PoseServo(env, recorder)
+    B = env.num_envs
+    outline = env._state.extras["outline"].cpu().numpy()  # (B, R, 2)
+    zdraw = env.CANVAS_THICKNESS + env.DOT_THICKNESS / 2
+
+    def tgt(i, z):
+        return np.concatenate([outline[:, i], np.full((B, 1), z, np.float32)], 1)
+
+    sv.to(lambda: tgt(0, 0.05), steps=20)
+    sv.to(lambda: tgt(0, zdraw), steps=10, gain=2.5)
+    for i in range(outline.shape[1]):
+        sv.to(lambda i=i: tgt(i, zdraw), steps=settle_steps, gain=4.0, clip=0.5)
+    sv.to(lambda: tgt(0, zdraw), steps=settle_steps, gain=4.0, clip=0.5)
+    return sv.success()
+
+
 def solve_fold_suitcase(env, recorder=None):
     """FoldSuitcase-v1 (reference solutions/fold_suitcase.py: rim
     waypoints pulled along the closing arc, fold_suitcase.py:341-405):
@@ -724,6 +746,8 @@ SOLUTIONS = {
     "PegInsertionSide-v1": solve_peg_insertion_side,
     "PlugCharger-v1": solve_plug_charger,
     "PullCubeTool-v1": solve_pull_cube_tool,
+    "DrawTriangle-v1": solve_draw_outline,
+    "DrawSVG-v1": solve_draw_outline,
     "FoldSuitcase-v1": solve_fold_suitcase,
 }
 

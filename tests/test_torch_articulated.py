@@ -28,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.agents.robots.panda import Panda as JPanda
 from maniskill_tpu.kinematics import articulation as jart
 from maniskill_tpu.physics import engine as jeng
@@ -44,7 +43,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import box_geom, tree_map
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -102,7 +101,7 @@ def _to_jax(like, port):
 @functools.lru_cache(maxsize=None)
 def _jax_env(task):
     """The task's JAX env, built but not reset (its model and tables)."""
-    return mst.make(task, num_envs=K, reward_mode="dense", sim_backend="xla")
+    return make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,7 +110,7 @@ def _jax(task):
     ``reset_out``) and its env step, vmapped and jitted."""
     env = _jax_env(task)
     env.reset_out = env.reset(seed=0)
-    return env, jax.jit(jax.vmap(env._step_one))
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)

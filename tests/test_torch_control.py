@@ -37,7 +37,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.kinematics.mjcf import load_mjcf as jload_mjcf
 from maniskill_tpu.physics import engine as jeng
@@ -51,7 +50,7 @@ from maniskill_tpu_torch.kinematics.mjcf import load_mjcf
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -122,7 +121,7 @@ def _to_jax(like, port):
 @functools.lru_cache(maxsize=None)
 def _jax_env(task):
     """The task's JAX env reset with seed 0."""
-    env = mst.make(task, num_envs=K, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset(seed=0)
     return env
 
@@ -138,7 +137,7 @@ def _jax_advance(robot):
         sim = env._physics_step(state.sim, cmd, env.sim_steps_per_control)
         return state.replace(sim=sim, cmd=cmd, elapsed_steps=state.elapsed_steps + 1)
 
-    return jax.jit(jax.vmap(advance))
+    return shared_jit(jax.vmap(advance))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,7 +152,7 @@ def _jax_post(task):
         info = env.evaluate(state, ctx)
         return env._get_obs(state, ctx, info), env._get_reward(state, action, info, ctx), info
 
-    return jax.jit(jax.vmap(post))
+    return shared_jit(jax.vmap(post))
 
 
 @functools.lru_cache(maxsize=None)

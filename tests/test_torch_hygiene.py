@@ -38,6 +38,10 @@ import maniskill_tpu_torch.envs.tasks.cartpole, maniskill_tpu_torch.envs.tasks.c
 import maniskill_tpu_torch.agents.controllers.ee
 import maniskill_tpu_torch.examples.motionplanning.solutions
 import maniskill_tpu_torch.examples.motionplanning.run
+import maniskill_tpu_torch.agents.robots.panda_stick, maniskill_tpu_torch.envs.template
+import maniskill_tpu_torch.envs.tasks.push_t, maniskill_tpu_torch.envs.tasks.draw
+import maniskill_tpu_torch.envs.tasks.draw_targets, maniskill_tpu_torch.envs.tasks.benchmarks
+import maniskill_tpu_torch.envs.tasks.assembling_kits, maniskill_tpu_torch.envs.tasks.pick_single_object
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 maniskill_tpu_torch.make("RotateSingleObjectInHandLevel2-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("OpenCabinetDrawer-v1", num_envs=2, device="cpu").reset(seed=0)
@@ -47,6 +51,10 @@ _e = maniskill_tpu_torch.make("PullCubeTool-v1", num_envs=2, device="cpu",
                               control_mode="pd_ee_delta_pose")
 _e.reset(seed=0)
 _e.step(numpy.zeros(7, "float32"))
+for _id in ("PushT-v1", "DrawSVG-v1", "FrankaMoveBenchmark-v1", "CustomEnv-v1", "FMBAssembly1Easy-v1"):
+    _e = maniskill_tpu_torch.make(_id, num_envs=2, device="cpu")
+    _e.reset(seed=0)
+    _e.reset(options={"env_idx": [1]})
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))
@@ -71,6 +79,9 @@ def test_make_without_device_raises_without_cuda(monkeypatch):
     assert mtt.make("PickCube-v1", num_envs=1, device="cpu").device.type == "cpu"
     for task in ("PlugCharger-v1", "RollBall-v1", "RotateSingleObjectInHandLevel2-v1",
                  "FoldSuitcase-v1", "TurnFaucet-v1", "OpenCabinetDrawer-v1",
-                 "MS-HumanoidStand-v1", "MS-CartpoleBalance-v1"):
+                 "MS-HumanoidStand-v1", "MS-CartpoleBalance-v1", "PushT-v1", "DrawSVG-v1",
+                 "PickSingleObject-v1", "AssemblingKits-v1", "FMBAssembly1Easy-v1",
+                 "FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1", "CustomEnv-v1",
+                 "TableTopFreeDraw-v1", "DrawTriangle-v1"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mtt.make(task, num_envs=1)

@@ -45,7 +45,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.agents.base_agent import auto_capsule_collisions as j_auto_capsules
 from maniskill_tpu.agents.robots.panda import Panda as JPanda
 from maniskill_tpu.agents.robots.xarm import AllegroHandRight as JAllegro
@@ -67,7 +66,7 @@ from maniskill_tpu_torch.math.rotations import quat_mul
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hull_stack, hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -374,9 +373,9 @@ def _jax(task):
     """The task's JAX env (K envs, reset with seed 0, its reset outputs in
     ``reset_out``) and its env step, vmapped and jitted: one of each per
     process, shared by every case that needs them."""
-    env = mst.make(task, num_envs=K, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
-    return env, jax.jit(jax.vmap(env._step_one))
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)

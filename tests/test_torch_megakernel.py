@@ -1021,16 +1021,20 @@ def test_slice_follows_a_hand_count(task, floats):
     assert plan.slice_floats() == floats and floats % 4 == 0
 
 
-_IDS = ["Empty-v1", "FoldSuitcase-v1", "FoldSuitcaseModels-v1", "LiftPegUpright-v1", "MS-AntRun-v1",
-        "MS-AntWalk-v1", "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1",
-        "MS-HopperStand-v1", "MS-HumanoidRun-v1", "MS-HumanoidStand-v1",
+_IDS = ["AssemblingKits-v1", "CustomEnv-v1", "DrawSVG-v1", "DrawTriangle-v1", "Empty-v1",
+        "FMBAssembly1Easy-v1", "FoldSuitcase-v1", "FoldSuitcaseModels-v1",
+        "FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1", "LiftPegUpright-v1",
+        "MS-AntRun-v1", "MS-AntWalk-v1", "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1",
+        "MS-HopperHop-v1", "MS-HopperStand-v1", "MS-HumanoidRun-v1", "MS-HumanoidStand-v1",
         "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1",
         "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1",
-        "PickCube-v1", "PickSingleHull-v1", "PickSingleYCB-v1", "PlugCharger-v1", "PokeCube-v1",
-        "PullCube-v1", "PullCubeTool-v1", "PushCube-v1", "PushCubeKitchen-v1", "RollBall-v1",
+        "PickCube-v1", "PickSingleHull-v1", "PickSingleObject-v1", "PickSingleYCB-v1",
+        "PlugCharger-v1", "PokeCube-v1", "PullCube-v1", "PullCubeTool-v1", "PushCube-v1",
+        "PushCubeKitchen-v1", "PushT-v1", "RollBall-v1",
         "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
-        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TurnFaucet-v1"]
+        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TableTopFreeDraw-v1",
+        "TurnFaucet-v1"]
 
 
 @pytest.mark.parametrize("task", _IDS + ["hull stack"])
@@ -1408,3 +1412,62 @@ def test_ee_control_step_kernels_match_plain(mode, monkeypatch):
                           contact_lam=5e-3, contact_lam_t=5e-3).items():
         e = (getattr(st2.sim, name) - getattr(ref, name)).abs().reshape(Kc, -1).amax(1)
         assert bool((e <= tol).all()), (name, float(e.max()))
+
+
+FAMILY_IDS = ["PushT-v1", "AssemblingKits-v1", "FMBAssembly1Easy-v1", "DrawSVG-v1",
+              "PickSingleObject-v1", "FrankaMoveBenchmark-v1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states", ["reset", "contact"])
+@pytest.mark.parametrize("task", FAMILY_IDS)
+def test_family_kernel_matches_plain(task, states):
+    """The Panda family's new scenes (PushT's stick and T, AssemblingKits'
+    board and piece, FMB's beam and pads, DrawSVG's 500 geomless dots in
+    the input row, PickSingleObject's per-env box, FrankaMove's lone Panda
+    over a ground plane with two sim steps a control step) through the
+    CUDA kernel against the plain step on the card, K=37: from reset states
+    (targets perturbed) every env within ``test_kernel_matches_plain``'s
+    tolerances; from the task's ``contact_state`` under its own command,
+    refereed by a float64 plain step as in
+    ``test_stackcube_kernel_matches_plain``, with points loaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    modes = mtt.REGISTERED_ENVS[task]["cls"].SUPPORTED_REWARD_MODES
+    cenv = mtt.make(task, num_envs=37, device="cuda",
+                    reward_mode="dense" if "dense" in modes else "none")
+    cenv.reset(seed=0)
+    assert cenv.kernel is not None
+    n = cenv.sim_steps_per_control
+    st = cenv._state
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    else:
+        cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    refereed = torch.full((37,), states == "contact", device="cuda")
+    got, aux = cenv.kernel(st.sim, cmd, n)
+    ref, aux_ref = cenv.kernel.plain(st.sim, cmd, n)
+    f64, aux64 = _in_float64(cenv.kernel.plain, _as64(st.sim), _as64(cmd), n)
+    torch.cuda.synchronize()
+    assert cenv.kernel.launches == 1
+    names = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
+                 contact_lam=5e-3, contact_lam_t=5e-3)
+    triples = [(getattr(got, k), getattr(ref, k), getattr(f64, k), tol)
+               for k, tol in names.items() if getattr(ref, k)[0].numel()]
+    triples += [(aux["f_pt"], aux_ref["f_pt"], aux64["f_pt"], 5e-3)]
+
+    def beyond(a, b, tol):
+        return (a.double() - b.double()).abs().reshape(37, -1).amax(1) > tol
+
+    for a, b, c, tol in triples:
+        assert torch.isfinite(a).all()
+        out = beyond(a, b, tol)
+        assert not (out & ~refereed).any(), (out.nonzero().ravel(), tol)
+        assert int(out.sum()) <= 0.1 * 37, (int(out.sum()), tol)
+        k64 = int((beyond(a, c, tol) & refereed).sum())
+        p64 = int((beyond(b, c, tol) & refereed).sum())
+        assert k64 <= 1.5 * p64 + 2, (k64, p64, tol)
+    if states == "contact":
+        loaded = (aux_ref["f_pt"].abs().sum(-1) > 0).any(1)
+        assert float(loaded.float().mean()) >= 0.5

@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.planners.mppi import MPPI as JMPPI, MPPIConfig as JMPPIConfig
 
@@ -28,7 +27,7 @@ from maniskill_tpu_torch.math import clamps
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -60,7 +59,7 @@ def _np(obj):
 
 @pytest.fixture(scope="module")
 def jenv():
-    env = mst.make("PickCube-v1", num_envs=K, reward_mode="dense",
+    env = make_jax_env("PickCube-v1", num_envs=K, reward_mode="dense",
                    sim_backend="xla")
     env.reset(seed=0)
     return env

@@ -33,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.physics import hulls as jhulls
 from maniskill_tpu.physics import shapes as jshapes
@@ -47,7 +46,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
 from maniskill_tpu_torch.utils import building
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -94,7 +93,7 @@ def _to_jax(like, port):
 
 @pytest.fixture(scope="module")
 def jenv():
-    env = mst.make("PickSingleHull-v1", num_envs=K, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env("PickSingleHull-v1", num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
     return env
 
@@ -269,7 +268,7 @@ def test_reset_state_evaluate_obs_and_extras(jenv, tenv):
 def jstep(jenv):
     """The JAX env step (physics, evaluate, obs, reward), vmapped and
     jitted once for the module."""
-    return jax.jit(jax.vmap(jenv._step_one))
+    return shared_jit(jax.vmap(jenv._step_one))
 
 
 def _jax_float64_step(jenv, sim, cmd):

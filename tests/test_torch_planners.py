@@ -30,7 +30,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.planners.cem import CEM as JCEM, CEMConfig as JCEMConfig
 from maniskill_tpu.planners.ilqr import ILQR as JILQR, ILQRConfig as JILQRConfig
 
@@ -40,7 +39,7 @@ from maniskill_tpu_torch.physics.model import _Struct, tree_map
 from maniskill_tpu_torch.planners import (CEM, CEMConfig, CEMILQR, CEMILQRConfig, ILQR,
                                           ILQRConfig, make_planner, solve_task)
 from maniskill_tpu_torch.planners.ilqr import select_step
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -66,7 +65,7 @@ def _np(obj):
 
 @pytest.fixture(scope="module")
 def jenv():
-    env = mst.make("StackCube-v1", num_envs=1, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env("StackCube-v1", num_envs=1, reward_mode="dense", sim_backend="xla")
     env.reset(seed=0)
     return env
 

@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.physics import shapes as jshapes
 
@@ -29,7 +28,7 @@ from maniskill_tpu_torch import convert
 from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -74,7 +73,7 @@ def _to_jax(like, port):
 
 @pytest.fixture(scope="module")
 def jenv():
-    env = mst.make("StackCube-v1", num_envs=K, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env("StackCube-v1", num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
     return env
 
@@ -88,7 +87,7 @@ def tenv():
 def jstep(jenv):
     """The JAX env step (physics, evaluate, obs, reward), vmapped and
     jitted once for the module."""
-    return jax.jit(jax.vmap(jenv._step_one))
+    return shared_jit(jax.vmap(jenv._step_one))
 
 
 def _random_box_poses(rng, n):

@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import maniskill_tpu as mst
 from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.planners import mpc as jmpc
@@ -44,7 +43,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import tree_map
 from maniskill_tpu_torch.planners import MPPI, MPPIConfig, run_episode, run_episode_device, solve_task
-from torch_parity import fast_trace_metadata
+from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -106,9 +105,9 @@ def _to_jax(like, port):
 def _jax(task):
     """The task's JAX env (K envs, reset with seed 0, its reset outputs in
     ``reset_out``) and its env step, vmapped and jitted."""
-    env = mst.make(task, num_envs=K, reward_mode="dense", sim_backend="xla")
+    env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
-    return env, jax.jit(jax.vmap(env._step_one))
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)
