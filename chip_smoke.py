@@ -64,11 +64,11 @@ Phases (each passes or ends the script with a non-zero exit):
      plain-step derivative) against those of the plain step, K=64;
   4. drive the port's PickCube main path: ``make("PickCube-v1")``,
      ``reset``, then MPPI at H=50, K=4096 (sigma 0.6, temperature 0.3): one
-     warm-up solve and 2 timed solves, with K2's launch count read around
+     warm-up solve and 1 timed solve, with K2's launch count read around
      them;
   5. drive the PickSingleYCB-v1 path at BASELINE config #5: MPPI at H=50,
      K=8192 (sigma 0.4 per arm joint and 0.1 for the gripper, temperature
-     0.1): one warm-up solve and 2 timed solves, 50 kernel launches each;
+     0.1): one warm-up solve and 1 timed solve, 50 kernel launches each;
      then the PlugCharger-v1, RollBall-v1 and
      RotateSingleObjectInHandLevel2-v1 paths at the bench shape (H=50,
      K=4096, sigma 0.6, temperature 0.3) the same way; then the
@@ -137,7 +137,23 @@ Phases (each passes or ends the script with a non-zero exit):
      (``[reset]``: a partial reset keeps the other envs bit for bit and
      gives the named ones a whole reset's rows; ``reconfiguration_freq=2``
      keeps, then resamples, PickSingleObject's objects);
-  10. print one JSON line of the kernels (launches on their paths, time per
+  10. the dexterous and legged families: K2 against the plain step at
+     K=4096 (``[dexterity]``, ``kernel_phase``) on TriFingerRotateCubeLevel0-v1
+     and Level4-v1 and RotateCube-v1 (a free cube on the floor, three
+     fingertip spheres pressed onto it in the contact states: sphere_box,
+     refereed by the in-hand rule) and on RotateValveDClaw-v1,
+     RotateValveLevel0-v1 and Level3-v1 (robot-only forests: the claw's
+     capsules on the valve's spokes, 3-6 heads and lengths per env in
+     ``geom_size``, the share of envs with a point loaded on an active
+     spoke gated); ``control_phase`` (``[legged]``) on AnymalC-Reach-v1,
+     UnitreeGo2-Reach-v1 and UnitreeH1Stand-v1 (PD joint control, standing,
+     on a side or upside down, every env refereed one by one, planted
+     faults caught); MPPI at the bench shape on
+     TriFingerRotateCubeLevel1-v1, RotateValveLevel2-v1, AnymalC-Reach-v1
+     and UnitreeH1Stand-v1 (with a profiled solve), the legged paths'
+     share of finite rollouts gated at the plain step's on the same draws
+     (``finite_against_plain``);
+  11. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
      ``{"ok": true, "device": {...}}``. ``[lap]`` lines give each phase's
@@ -153,9 +169,9 @@ import sys
 import time
 
 K_CHECK = 4096
-# timed MPPI solves a path, after one warm-up (5, then 3: cut to keep the
-# whole run within its time limit as phases are added)
-TIMED_SOLVES = 2
+# timed MPPI solves a path, after one warm-up (5, then 3, then 2: cut to
+# keep the whole run within its time limit as phases are added)
+TIMED_SOLVES = 1
 # PickSingleYCB-v1 MPPI, BASELINE config #5 (the JAX package's
 # tools/solve_tasks.py:90-94)
 K_YCB, SIGMA_YCB, TEMP_YCB = 8192, [0.4] * 7 + [0.1], 0.1
@@ -169,11 +185,11 @@ K_SEAM = 64
 EPISODE_STEPS, EPISODE_TOL = 50, 1e-4
 # replays of the profiled device episode (a replay is ~11,300 device ops)
 PROFILED_STEPS = 10
-# the MPPI paths' bound counts every 25th launch of the warm-up solve
-# (rollout steps 0 and 25; every 5th, then every 10th, before phases were
-# added): megakernel.work reruns the plain step substep by substep, about
-# two plain steps a launch (PlugCharger 1.2 s)
-PATH_BOUND_EVERY = 25
+# the MPPI paths' bound counts every 50th launch of the warm-up solve
+# (rollout step 0 of the bench shape's 50; every 5th, 10th, then 25th,
+# before phases were added): megakernel.work reruns the plain step
+# substep by substep, about two plain steps a launch (PlugCharger 1.2 s)
+PATH_BOUND_EVERY = 50
 # kernel vs plain tolerances (tests/test_torch_pickcube.py, from
 # tests/test_megakernel.py:48-67): float32 on both sides, sums in another
 # order; contact impulses are newtons under a stiff implicit law
@@ -864,13 +880,14 @@ def planted_faults(env, task, cst):
 def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
     """Phase 2 for a control-suite scene at ``k`` envs (one control step:
     4 sim steps of 2 substeps, h = 5 ms): K2 against its plain step from
-    reset states under the command of a random action (``random_torques``:
+    reset states under the command of a random action (``random_command``:
     normal(0, 0.6) clipped, MPPI's draw at the bench sigma; Cartpole: a
     uniform slider action); for a robot on the floor, from
     ``contact_state`` states (standing in even envs; on a side or upside
-    down in odd ones; small random torques), where plane_capsule must
-    carry force in the standing envs and plane_sphere in the upside-down
-    ones (where the scene has it), with friction. Cartpole's envs are held
+    down in odd ones; small random torques), where the env class's
+    ``FLOOR_CONTACT`` pair functions must carry force, the first in the
+    standing envs and the second in the upside-down ones (where the scene
+    has it), with friction. Cartpole's envs are held
     in full. The floor robots' are all refereed one by one (``compare_step``,
     ``per_env``), in the air too: the humanoid's 27-dof tree
     under the bench torques (qvel up to 100 rad/s) puts both float32 steps
@@ -893,6 +910,8 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
     env = mtt.make(task, num_envs=k, reward_mode="dense")
     task = f"{task} K={k}"
     env.reset(seed=0)
+    if env.kernel is None:
+        fail(f"{task}: the env's physics dispatch did not choose K2")
     kern, plan = env.kernel, env.kernel.plan
     n = env.sim_steps_per_control
     gen = torch.Generator(device="cuda")
@@ -900,7 +919,7 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
     st = env._state
     floor = plan.P > 0
     if floor:
-        st = env.random_torques(st, gen)
+        st = env.random_command(st, gen)
     else:
         a = torch.rand((k, env.action_dim), generator=gen, device="cuda") * 2 - 1
         st = st.replace(cmd=env.agent.controller.set_action(st.cmd, st.sim.qpos, a))
@@ -928,15 +947,17 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
         loaded = loaded_in_step(kern, cst.sim, cst.cmd, n)
         pfn = torch.as_tensor(plan.pfn, device="cuda")
         idx = torch.arange(k, device="cuda")
+        standing, upside_down = env.FLOOR_CONTACT
         print(f"[check] {task} contact: {int(loaded.sum())} points loaded in the step "
               f"({float(loaded.sum(1).float().mean()):.2f} per env)")
-        branches = {"plane_capsule loaded (standing envs)":
-                    loaded[idx % 2 == 0][:, pfn == megakernel._FNS.index("plane_capsule")].any(1),
+        branches = {f"{standing} loaded (standing envs)":
+                    loaded[idx % 2 == 0][:, pfn == megakernel._FNS.index(standing)].any(1),
                     "friction lam_t nonzero":
                     (cref["contact_lam_t"].abs().sum(-1) > 0).any(1)}
-        sphere = pfn == megakernel._FNS.index("plane_sphere")
-        if bool(sphere.any()):
-            branches["plane_sphere loaded (upside-down envs)"] = loaded[idx % 4 == 3][:, sphere].any(1)
+        top = pfn == megakernel._FNS.index(upside_down)
+        if bool(top.any()):
+            branches[f"{upside_down} loaded (upside-down envs)"] = \
+                loaded[idx % 4 == 3][:, top].any(1)
         for label, holds in branches.items():
             share = float(holds.float().mean())
             print(f"[check] {task} contact: {label} in {100 * share:.1f} % of its envs")
@@ -1010,7 +1031,8 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
 
 
 def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
-                 contact_cmd="perturbed", inhand=False, limit_gate=False, per_env=False):
+                 contact_cmd="perturbed", inhand=False, limit_gate=False, per_env=False,
+                 ill_rule=None):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
     starts apart may end from its starting height after 10 control steps.
@@ -1036,11 +1058,14 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     where a point carries force within the step, as the in-hand scenes do
     (without the share rule's restriction), and settle from their contact
     states instead (``forest_settle``; ``limit_gate``: an object must
-    reach its open-limit band)."""
+    reach its open-limit band). ``ill_rule``: the in-hand scenes' share
+    rule for the contact states alone (default: with ``inhand``), where the
+    reset states are held as usual (the TriFinger scenes: the fingers start
+    away from the cube)."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
-    ill_rule = inhand
+    ill_rule = inhand if ill_rule is None else ill_rule
     # the Franka benchmarks take reward "none" only
     modes = mtt.REGISTERED_ENVS[task]["cls"].SUPPORTED_REWARD_MODES
     env = mtt.make(task, num_envs=k, reward_mode="dense" if "dense" in modes else "none")
@@ -2136,6 +2161,161 @@ def reset_phase(mtt):
     torch.cuda.empty_cache()
 
 
+def trifinger_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the TriFinger contact states (the three
+    fingertip spheres pressed onto the cube's top in even envs, its sides
+    in odd ones): sphere_box points, with friction, and the cube's
+    plane_box points on the floor. Prints the share of envs with
+    sphere_box points loaded."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    tips = torch.as_tensor(plan.pfn == _FNS.index("sphere_box"), device=dev)
+    floor = torch.as_tensor(plan.pfn == _FNS.index("plane_box"), device=dev)
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: fingertip sphere_box points loaded "
+          f"in {100 * float(loaded[:, tips].any(1).float().mean()):.1f} % of the envs "
+          f"({float(loaded[:, tips].sum(1).float().mean()):.2f} of 3 per env)")
+    return {
+        "fingertip sphere_box loaded": loaded[:, tips].any(1),
+        "friction lam_t nonzero (sphere_box)": lam_t[:, tips].any(1),
+        "cube-floor plane_box loaded": loaded[:, floor].any(1),
+    }
+
+
+def valve_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the valve contact states (the claw's
+    fingertips on spokes grown taller: the claw cannot reach the JAX
+    scene's valve, ROADMAP Queue C): capsule_box points on a spoke of full
+    size in that env (an inactive spoke is a 1 mm box), with friction.
+    Prints the envs' head counts and the share of envs with a loaded
+    point on an active spoke; a point loaded on an inactive spoke fails."""
+    import numpy as np
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    dev = loaded.device
+    spokes = env._spoke_geoms
+    on_a = np.isin(plan.pga, spokes)
+    geom = torch.as_tensor(np.where(on_a, plan.pga, plan.pgb), device=dev, dtype=torch.long)
+    spoke = torch.as_tensor((on_a | np.isin(plan.pgb, spokes))
+                            & (plan.pfn == _FNS.index("capsule_box")), device=dev)
+    active = cst.sim.geom_size[:, geom, 0] > 1e-3
+    heads = (cst.sim.geom_size[:, torch.as_tensor(spokes, device=dev), 0] > 1e-3).sum(1)
+    on_active = (loaded & spoke & active).any(1)
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    n_inactive = int((loaded & spoke & ~active).sum())
+    print(f"[check] {env.env_id} K={loaded.shape[0]} contact: envs by head count "
+          f"{torch.bincount(heads, minlength=7)[3:].tolist()} (3-6 heads); capsule_box points "
+          f"loaded on an active spoke in {100 * float(on_active.float().mean()):.1f} % of the "
+          f"envs ({int((loaded & spoke & active).sum())} points), on an inactive one "
+          f"{n_inactive}")
+    if n_inactive:
+        fail(f"{env.env_id}: {n_inactive} points loaded on an inactive (1 mm) spoke")
+    return {
+        "claw-spoke capsule_box loaded on an active spoke": on_active,
+        "friction lam_t nonzero (claw-spoke)": (lam_t & spoke).any(1),
+    }
+
+
+def dexterity_phase(mtt, engine, megakernel):
+    """[dexterity]: K2 against its plain step on the dexterous scenes at
+    K_CHECK envs (``kernel_phase``: reset states, contact states, a
+    10-control-step settle, time, bound, slice and resident envs per SM,
+    two launches on one plane bit-identical, the dispatch's choice of K2):
+    TriFingerRotateCubeLevel0-v1 and Level4-v1 (a free 65 mm cube on the
+    floor and a kinematic goal: plane_box, plane_sphere, sphere_box; the
+    fingertips pressed onto the cube in the contact states, refereed by the
+    in-hand rule: the 94 g cube squeezed by three drives leaves the float32
+    plain step beyond a float64 step's tolerances in some envs),
+    RotateCube-v1 (its 70 mm cube), RotateValveDClaw-v1 and
+    RotateValveLevel0-v1 and Level3-v1 (robot-only forests, F=0: the claw's
+    capsules against the valve's spokes across the two trees; Level3's
+    planes hold 3-6 heads and lengths per env in ``geom_size``; the
+    articulated scenes' rule: reset envs where a point carries force in
+    the step refereed, contact states under their own command; the share
+    of contact envs with a point loaded on an active spoke gated). Returns
+    each task's numbers."""
+    import torch
+
+    out = {}
+    for task in ("TriFingerRotateCubeLevel0-v1", "TriFingerRotateCubeLevel4-v1", "RotateCube-v1"):
+        out[task] = kernel_phase(mtt, engine, megakernel, task, trifinger_branches,
+                                 contact_cmd="own", ill_rule=True)
+        torch.cuda.empty_cache()
+    for task in ("RotateValveDClaw-v1", "RotateValveLevel0-v1", "RotateValveLevel3-v1"):
+        out[task] = kernel_phase(mtt, engine, megakernel, task, valve_branches,
+                                 contact_cmd="own")
+        torch.cuda.empty_cache()
+    return out
+
+
+def legged_phase(mtt, engine, megakernel):
+    """[legged]: K2 against its plain step on the legged scenes at K_CHECK
+    envs through ``control_phase`` (PD joint control, 2 sim steps of 2
+    substeps a control step, the robot's links under gravity, the root a
+    chain of 3 slides and 3 hinges): AnymalC-Reach-v1 and
+    UnitreeGo2-Reach-v1 (nq 18: sphere feet, capsule legs, a box base) and
+    UnitreeH1Stand-v1 (nq 25: box feet, a sphere head), from reset states
+    under a random action at the bench sigma and from states on the floor
+    (standing, on a side, upside down), every env refereed one by one
+    against a float64 plain step, the referee shown to catch a 1 % fault;
+    a 10-control-step settle. Returns each task's numbers."""
+    import torch
+
+    out = {}
+    for task in ("AnymalC-Reach-v1", "UnitreeGo2-Reach-v1", "UnitreeH1Stand-v1"):
+        out[task] = control_phase(mtt, engine, megakernel, task)
+        torch.cuda.empty_cache()
+    return out
+
+
+def finite_against_plain(mtt, MPPI, MPPIConfig, task):
+    """A legged path's share of MPPI rollouts that end finite, gated at the
+    plain step's on the same draws: one solve at the env class's
+    ``MPPI_CONFIG`` from the seed-0 reset state with one white-noise draw,
+    through K2 and through the plain step (``sim_backend="torch"``). A
+    rollout that falls flat reaches the root chain's singularity (ROADMAP
+    Queue C) and may end non-finite in either; the kernel's share must be
+    at least the plain step's less three binomial standard errors of it.
+    Returns both shares."""
+    import math
+
+    import torch
+
+    shares, secs, white = {}, {}, None
+    for backend in ("auto", "torch"):
+        t0 = time.perf_counter()
+        env = mtt.make(task, num_envs=1, robot_init_qpos_noise=0.0, reward_mode="dense",
+                       sim_backend=backend)
+        env.reset(seed=0)
+        cfg = MPPIConfig(**type(env).MPPI_CONFIG)
+        if white is None:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(2)
+            white = torch.randn((cfg.num_samples, cfg.horizon, env.action_dim), generator=gen,
+                                device="cuda")
+        planner = MPPI(env, cfg)
+        _, info = planner.solve(planner.init(seed=0), env._state, noise=white)
+        shares[backend] = float(torch.isfinite(info["returns"]).float().mean())
+        secs[backend] = time.perf_counter() - t0
+        del env, planner, info
+    k, p = white.shape[0], shares["torch"]
+    floor = p - 3 * math.sqrt(p * (1 - p) / k)
+    print(f"[legged] {task} MPPI rollouts ending finite on one draw: K2 "
+          f"{100 * shares['auto']:.2f} %, the plain step {100 * p:.2f} % (gate: at least "
+          f"{100 * floor:.2f} %; the solves {secs['auto']:.1f} s and {secs['torch']:.1f} s)",
+          flush=True)
+    if shares["auto"] < floor:
+        fail(f"{task}: K2's MPPI rollouts end finite in {100 * shares['auto']:.2f} %, the "
+             f"plain step's in {100 * p:.2f} % on the same draws")
+    torch.cuda.empty_cache()
+    return dict(finite_share=shares["auto"], plain_finite_share=p)
+
+
 def main():
     import torch
 
@@ -2241,7 +2421,10 @@ def main():
 
     lap("4")
     # ---- 4. the PickCube main path: MPPI ----
-    pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42)
+    # no profiled solve here: one of PickCube's 61,500 device ops takes
+    # ~25 s under torch.profiler (PushT's and H1's solves are profiled)
+    pick |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42,
+                       profile=False)
 
     lap("5")
     # ---- 5. the PickSingleYCB path: MPPI at config #5 ----
@@ -2296,7 +2479,7 @@ def main():
     # every 40th, before phases were added): megakernel.work at K=16384
     # takes seconds a launch
     peg |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                      "PegInsertionSide-v1", 43, bound_every=80)
+                      "PegInsertionSide-v1", 43, bound_every=80, profile=False)
     torch.cuda.empty_cache()
     poke |= mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PokeCube-v1", 42,
                        profile=False)
@@ -2340,6 +2523,34 @@ def main():
     envstep = envstep_phase(mtt)
     lap("9 [reset]")
     reset_phase(mtt)
+
+    lap("10 [dexterity]")
+    # ---- 10. the dexterous and legged families: K2 on their scenes, MPPI
+    # on four of them at the bench shape ----
+    dex = dexterity_phase(mtt, engine, megakernel)
+    lap("10 [legged]")
+    legged = legged_phase(mtt, engine, megakernel)
+    lap("10 [mppi]")
+    paths = {}
+    for task, obs_dim in (("TriFingerRotateCubeLevel1-v1", 32), ("RotateValveLevel2-v1", 29),
+                          ("AnymalC-Reach-v1", 47), ("UnitreeH1Stand-v1", 51)):
+        torch.cuda.empty_cache()
+        floor_robot = task in legged
+        # the legged paths' finite share is gated at the plain step's on
+        # the same draws (finite_against_plain), not at a fixed share
+        paths[task] = mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, task,
+                                 obs_dim, min_finite=0.0 if floor_robot else 1.0,
+                                 profile=task == "UnitreeH1Stand-v1")
+        if floor_robot:
+            paths[task] |= finite_against_plain(mtt, planners.MPPI, planners.MPPIConfig, task)
+        n = paths[task]
+        print(f"[mppi] {task} MPPI at the bench shape: {n['rps']:.1f} rollouts/s, K2 "
+              f"{n['path_ms']:.4f} ms a launch (bound {n['path_bound_ms']:.5f} ms), "
+              f"{100 * n['wall_share']:.1f} % of the wall"
+              + (f"; rollouts finite {100 * n['finite_share']:.2f} % (plain step "
+                 f"{100 * n['plain_finite_share']:.2f} %)" if floor_robot else "")
+              + (f"; device busy {n['busy_ms']:.1f} ms and {n['device_ops']} device ops in the "
+                 "profiled solve" if "busy_ms" in n else ""), flush=True)
     lap("done")
     print(f"[done] every phase passed, {time.perf_counter() - t_start:.1f} s with the builds",
           flush=True)
@@ -2358,8 +2569,14 @@ def main():
                                             "max_err_held", "episode_first_action_err",
                                             "episode_replan_hz", "host_replan_hz",
                                             "graph_nodes", "capture_s", "graph_launches",
-                                            "graph_k2_ms_each", "graph_busy_ms_per_replay")
+                                            "graph_k2_ms_each", "graph_busy_ms_per_replay",
+                                            "rps", "finite_share", "plain_finite_share")
                     if k in numbers}
+
+    def scenes(numbers, tasks):
+        return {t: {"max_abs_err": numbers[t]["max_err"]}
+                | {k: numbers[t][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "slice_bytes", "envs_per_sm")} for t in tasks}
 
     draw = [sols["runs"][t] for t in ("DrawTriangle-v1", "DrawSVG-v1")]
     draw_k2 = sum(r["launches"] for r in draw)  # K1's too: one each a control step
@@ -2438,6 +2655,29 @@ def main():
                      f"launch); launches: {ENVSTEP_STEPS} timed env.step calls each of "
                      f"FrankaMoveBenchmark-v1 and FrankaPickCubeBenchmark-v1 at B={K_CHECK}; "
                      f"path_ms: a launch in FrankaMoveBenchmark's"},
+        entry("megakernel_step", k2_src, k2_tpu, dex["TriFingerRotateCubeLevel4-v1"]
+              | paths["TriFingerRotateCubeLevel1-v1"])
+        | {"inputs": f"TriFingerRotateCubeLevel4-v1, K={K_CHECK}, contact states; launches and "
+                     f"path_*: TriFingerRotateCubeLevel1-v1 MPPI H=50, K=4096 (the same "
+                     f"scene); scenes: the kernel checks of the scenes no path of this run "
+                     f"launches",
+           "scenes": scenes(dex, ("TriFingerRotateCubeLevel0-v1", "RotateCube-v1"))},
+        entry("megakernel_step", k2_src, k2_tpu, dex["RotateValveLevel3-v1"]
+              | paths["RotateValveLevel2-v1"])
+        | {"inputs": f"RotateValveLevel3-v1, K={K_CHECK}, contact states; launches and path_*: "
+                     f"RotateValveLevel2-v1 MPPI H=50, K=4096 (the same scene, 3-6 heads per "
+                     f"env); scenes: the kernel checks of the scenes no path of this run "
+                     f"launches",
+           "scenes": scenes(dex, ("RotateValveDClaw-v1", "RotateValveLevel0-v1"))},
+        entry("megakernel_step", k2_src, k2_tpu, legged["AnymalC-Reach-v1"]
+              | paths["AnymalC-Reach-v1"])
+        | {"inputs": f"AnymalC-Reach-v1, K={K_CHECK}, contact states; launches and path_*: its "
+                     f"MPPI H=50, K=4096; scenes: UnitreeGo2-Reach-v1's kernel check",
+           "scenes": scenes(legged, ("UnitreeGo2-Reach-v1",))},
+        entry("megakernel_step", k2_src, k2_tpu, legged["UnitreeH1Stand-v1"]
+              | paths["UnitreeH1Stand-v1"])
+        | {"inputs": f"UnitreeH1Stand-v1, K={K_CHECK}, contact states; launches and path_*: its "
+                     f"MPPI H=50, K=4096"},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

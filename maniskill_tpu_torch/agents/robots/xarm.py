@@ -1,25 +1,44 @@
-"""Allegro right hand.
+"""The Allegro right hand and the ROBEL D'Claw.
 
-Port of ``AllegroHandRight`` in ``maniskill_tpu/agents/robots/xarm.py``
-(``:86-128``): the 16-dof, four-finger hand with a fixed base, its cradle
-rest keyframe (fingers slightly curled, so an upturned palm holds an
-object), auto-generated capsule collisions (radius 0.014, leaf tips 0.035,
-friction 1.0) and the ``pd_joint_delta_pos`` and ``pd_joint_pos`` control
-modes. It has no mimic gripper: every joint takes its own action. XArm7
-and DClaw, which share the JAX module, are not ported yet. The URDF is
-read as a data file from the JAX package's asset tree.
+Port of ``AllegroHandRight`` and ``DClaw`` in
+``maniskill_tpu/agents/robots/xarm.py`` (``:86-165``), both with a fixed
+base, auto-generated capsule collisions and the ``pd_joint_delta_pos`` and
+``pd_joint_pos`` control modes; neither has a mimic gripper: every joint
+takes its own action.
+
+- ``AllegroHandRight``: 16 dofs, four fingers, its cradle rest keyframe
+  (fingers slightly curled, so an upturned palm holds an object), capsules
+  of radius 0.014 (leaf tips 0.035, friction 1.0); kp 4e2, kd 10, force
+  limit 10.
+- ``DClaw``: 9 dofs, three fingers, the zero rest keyframe, capsules of
+  radius 0.018 (leaf tips 0.04, friction 1.0); kp 1e2, kd 5, force limit
+  20. Used by RotateValveDClaw-v1 and RotateValveLevel0-4-v1.
+
+XArm7 and XArm7Ability, which share the JAX module, are not ported yet.
+The URDFs are read as data files from the JAX package's asset tree.
 """
 from __future__ import annotations
 
-from pathlib import Path
-
 import numpy as np
 
+from ...utils.building import ASSET_DIR
 from ..base_agent import BaseAgent, Keyframe, auto_capsule_collisions, register_agent
 from ..controllers.base import PDJointPosControllerConfig
 
-ALLEGRO_URDF = str(Path(__file__).resolve().parents[3] / "maniskill_tpu" / "assets"
-                   / "robots" / "allegro" / "allegro_hand_right.urdf")
+ALLEGRO_URDF = str(ASSET_DIR / "robots" / "allegro" / "allegro_hand_right.urdf")
+DCLAW_URDF = str(ASSET_DIR / "robots" / "dclaw" / "dclaw_gripper_glb.urdf")
+
+
+def _joint_modes(agent, group):
+    """The two joint control modes over every joint of ``agent``."""
+    common = dict(joint_names=list(agent.robot_spec.joint_names), stiffness=agent.stiffness,
+                  damping=agent.damping, force_limit=agent.force_limit)
+    return dict(
+        pd_joint_delta_pos={group: PDJointPosControllerConfig(
+            lower=-0.1, upper=0.1, use_delta=True, **common)},
+        pd_joint_pos={group: PDJointPosControllerConfig(
+            lower=None, upper=None, normalize_action=False, **common)},
+    )
 
 
 @register_agent
@@ -48,12 +67,27 @@ class AllegroHandRight(BaseAgent):
                                        tip_length=0.035, friction=1.0)
 
     def _controller_configs(self):
-        common = dict(joint_names=list(self.robot_spec.joint_names),
-                      stiffness=self.stiffness, damping=self.damping,
-                      force_limit=self.force_limit)
-        return dict(
-            pd_joint_delta_pos=dict(hand=PDJointPosControllerConfig(
-                lower=-0.1, upper=0.1, use_delta=True, **common)),
-            pd_joint_pos=dict(hand=PDJointPosControllerConfig(
-                lower=None, upper=None, normalize_action=False, **common)),
-        )
+        return _joint_modes(self, "hand")
+
+
+@register_agent
+class DClaw(BaseAgent):
+    uid = "dclaw"
+    urdf_path = DCLAW_URDF
+    ee_link_name = None
+
+    stiffness = 1e2
+    damping = 5.0
+    force_limit = 20.0
+
+    def _make_robot_spec(self):
+        spec = super()._make_robot_spec()
+        self.keyframes = dict(rest=Keyframe(qpos=np.zeros(spec.nb, np.float32)))
+        return spec
+
+    def collision_geoms(self):
+        return auto_capsule_collisions(self.robot_spec, default_radius=0.018,
+                                       tip_length=0.04, friction=1.0)
+
+    def _controller_configs(self):
+        return _joint_modes(self, "claw")

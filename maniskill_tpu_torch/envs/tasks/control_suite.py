@@ -85,7 +85,68 @@ class HumanoidRobot(_MJCFAgent):
     keyframes = {"rest": Keyframe(qpos=np.zeros(27, np.float32))}
 
 
-class _ControlEnv(BaseEnv):
+class FloorRobotEnv(BaseEnv):
+    """A robot on a floor plane, its root a chain of slides x, y, z and
+    hinges z, y, x (the MJCF ``<freejoint>`` expansion): random commands
+    and states on the floor for checks of the physics step (the control
+    suite here; the legged robots of ``quadruped.py`` and
+    ``humanoid_stand.py``)."""
+
+    # the pair functions whose points carry force in ``contact_state``'s
+    # standing envs and upside-down envs: the humanoid's capsule feet and
+    # sphere head
+    FLOOR_CONTACT = ("plane_capsule", "plane_sphere")
+
+    def random_command(self, state: EnvState, gen: torch.Generator,
+                       sigma: float = 0.6) -> EnvState:
+        """``state`` with the command of a random action: normal(0,
+        ``sigma``) clipped to [-1, 1] (0.6: MPPI's draw at the bench
+        sigma)."""
+        a = torch.randn((state.sim.qpos.shape[0], self.action_dim), generator=gen,
+                        device=self.device)
+        cmd = self.agent.controller.set_action(state.cmd, state.sim.qpos,
+                                               torch.clamp(sigma * a, -1.0, 1.0))
+        return state.replace(cmd=cmd)
+
+    def contact_state(self, state: EnvState, gen: torch.Generator) -> EnvState:
+        """``state`` moved onto the floor: the robot as posed (even envs),
+        turned about its root's last hinge (the humanoid's and the ant's x
+        hinge; a quarter turn of their middle, y hinge would align the
+        chain's outer two, where the mass matrix is singular) a quarter
+        where the env index is 1 modulo 4 (lying on its side) or a half
+        where it is 3 (upside down: the humanoid on its head), lowered along the root's z slide until its
+        lowest collision point is 0-1 mm inside the floor, with random
+        joint velocities (0.1); one control step of the plain physics step
+        under the command that holds the pose (zero torque, or PD targets
+        at the posed joints) then loads the warm-start impulses, and the
+        command holds a small random action (``random_command`` at sigma
+        0.1: the bench sigma's 0.6 throws most robots off the floor within
+        a step).
+        Points on the floor carry force, with friction, from such states
+        (the humanoid: its feet's capsules standing, its limbs' capsules on
+        its side, its head's sphere upside down), so checks of the physics
+        step start from them."""
+        dev = self.device
+        spec = self.model.robot
+        K = state.sim.qpos.shape[0]
+        z_dof = next(i for i in range(spec.nb) if spec.joint_type[i] == JOINT_PRISMATIC
+                     and spec.axis[i][2] == 1.0)
+        roll = max(i for i, n in enumerate(spec.joint_names)
+                   if n.startswith("root") and spec.joint_type[i] == JOINT_REVOLUTE)
+        qpos = state.sim.qpos.clone()
+        qpos[1::4, roll] -= math.pi / 2
+        qpos[3::4, roll] += math.pi
+        sim = state.sim.replace(qpos=qpos)
+        depth = compute_contacts(self.model, sim, *robot_fk(self.model, qpos)[:2])[2]
+        qpos[:, z_dof] += depth.max(1).values - 1e-3 * torch.rand(K, generator=gen, device=dev)
+        qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
+        cmd = self.agent.controller.reset(qpos)
+        sim = make_step_fn(self.model)(sim.replace(qpos=qpos, qvel=qvel), cmd,
+                                       self.sim_steps_per_control)
+        return self.random_command(state.replace(sim=sim, cmd=cmd), gen, sigma=0.1)
+
+
+class _ControlEnv(FloorRobotEnv):
     """Shared locomotion scaffolding: the floor from the MJCF world, the
     whole robot's COM velocity, link heights."""
 
@@ -117,52 +178,6 @@ class _ControlEnv(BaseEnv):
         v_lin = vb[..., 3:] + _cross(vb[..., :3], ctx.body_pos - ref)
         m = const(model, "robot_mass", model.robot.mass, dev)
         return (m[:, None] * v_lin).sum(1) / m.sum()
-
-    def random_torques(self, state: EnvState, gen: torch.Generator,
-                       sigma: float = 0.6) -> EnvState:
-        """``state`` with the command of a random action: normal(0,
-        ``sigma``) clipped to [-1, 1] (0.6: MPPI's draw at the bench
-        sigma)."""
-        a = torch.randn((state.sim.qpos.shape[0], self.action_dim), generator=gen,
-                        device=self.device)
-        cmd = self.agent.controller.set_action(state.cmd, state.sim.qpos,
-                                               torch.clamp(sigma * a, -1.0, 1.0))
-        return state.replace(cmd=cmd)
-
-    def contact_state(self, state: EnvState, gen: torch.Generator) -> EnvState:
-        """``state`` moved onto the floor: the robot as posed (even envs),
-        turned about its root's last hinge (the humanoid's and the ant's x
-        hinge; a quarter turn of their middle, y hinge would align the
-        chain's outer two, where the mass matrix is singular) a quarter
-        where the env index is 1 modulo 4 (lying on its side) or a half
-        where it is 3 (upside down: the humanoid on its head), lowered along the root's z slide until its
-        lowest collision point is 0-1 mm inside the floor, with random
-        joint velocities (0.1); one control step of the plain physics step
-        at zero torque then loads the warm-start impulses, and the command
-        holds small random torques (``random_torques`` at sigma 0.1: the
-        bench sigma's 0.6 throws most robots off the floor within a step).
-        Points on the floor carry force, with friction, from such states
-        (the humanoid: its feet's capsules standing, its limbs' capsules on
-        its side, its head's sphere upside down), so checks of the physics
-        step start from them."""
-        dev = self.device
-        spec = self.model.robot
-        K = state.sim.qpos.shape[0]
-        z_dof = next(i for i in range(spec.nb) if spec.joint_type[i] == JOINT_PRISMATIC
-                     and spec.axis[i][2] == 1.0)
-        roll = max(i for i, n in enumerate(spec.joint_names)
-                   if n.startswith("root") and spec.joint_type[i] == JOINT_REVOLUTE)
-        qpos = state.sim.qpos.clone()
-        qpos[1::4, roll] -= math.pi / 2
-        qpos[3::4, roll] += math.pi
-        sim = state.sim.replace(qpos=qpos)
-        depth = compute_contacts(self.model, sim, *robot_fk(self.model, qpos)[:2])[2]
-        qpos[:, z_dof] += depth.max(1).values - 1e-3 * torch.rand(K, generator=gen, device=dev)
-        qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
-        cmd = self.agent.controller.reset(qpos)
-        sim = make_step_fn(self.model)(sim.replace(qpos=qpos, qvel=qvel), cmd,
-                                       self.sim_steps_per_control)
-        return self.random_torques(state.replace(sim=sim, cmd=cmd), gen, sigma=0.1)
 
     @staticmethod
     def _small_control(action):

@@ -1,10 +1,12 @@
 """Quaternion and rotation math on batched torch tensors.
 
-Port of ``maniskill_tpu/math/rotations.py`` (the functions PickCube's path
-needs). Quaternions are ``(..., 4)`` tensors in ``(w, x, y, z)`` order; every
+Port of ``maniskill_tpu/math/rotations.py`` (the functions the ported tasks
+need). Quaternions are ``(..., 4)`` tensors in ``(w, x, y, z)`` order; every
 function broadcasts over leading batch dims.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -98,6 +100,26 @@ def quat_exp(w: torch.Tensor) -> torch.Tensor:
     half = 0.5 * angle
     k = torch.sin(half) / angle
     return torch.cat([torch.cos(half), w * k], dim=-1)
+
+
+def random_quaternion(gen: torch.Generator, shape=(), lock_x: bool = False,
+                      lock_y: bool = False, lock_z: bool = False,
+                      device="cpu") -> torch.Tensor:
+    """Random unit quaternions of ``shape`` drawn with ``gen``: yaw only
+    (a uniform angle about +z) under ``lock_x and lock_y``, the identity
+    under all three locks, else Shoemake's uniform quaternion (the other
+    lock combinations restrict nothing, as in the JAX package)."""
+    shape = tuple(shape)
+    if lock_x and lock_y and not lock_z:
+        ang = -math.pi + 2 * math.pi * torch.rand(shape, generator=gen, device=device)
+        axis = torch.tensor([0.0, 0.0, 1.0], device=device).expand(shape + (3,))
+        return quat_from_axis_angle(axis, ang)
+    if lock_x and lock_y and lock_z:
+        return torch.tensor([1.0, 0.0, 0.0, 0.0], device=device).expand(shape + (4,)).clone()
+    u1, u2, u3 = torch.rand(shape + (3,), generator=gen, device=device).unbind(-1)
+    a, b = torch.sqrt(1.0 - u1), torch.sqrt(u1)
+    return torch.stack([a * torch.sin(2 * math.pi * u2), a * torch.cos(2 * math.pi * u2),
+                        b * torch.sin(2 * math.pi * u3), b * torch.cos(2 * math.pi * u3)], -1)
 
 
 def angle_between(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -313,6 +313,20 @@ def make_force_query(model: SceneModel):
     return query
 
 
+def body_contact_mask(model: SceneModel, link_names) -> np.ndarray:
+    """Static (P,) mask of the points with a geom of one of the named robot
+    links (or articulated-object links of the forest) on either side: the
+    point order of ``_trace_metadata`` (JAX ``envs/tasks/quadruped.py``
+    ``_body_contact_mask``)."""
+    idx = {model.robot.link_index[n] for n in link_names}
+    *_, meta_a, meta_b = _trace_metadata(model)
+    mask = np.zeros(len(meta_a), dtype=np.float32)
+    for p, ((ka, ba), (kb, bb)) in enumerate(zip(meta_a, meta_b)):
+        if (ka == BodyKind.ROBOT_LINK and ba in idx) or (kb == BodyKind.ROBOT_LINK and bb in idx):
+            mask[p] = 1.0
+    return mask
+
+
 def pair_force_signs(model: SceneModel, sel_a, sel_b) -> np.ndarray:
     """Static (P,) signs: +1 where a point's pair is (sel_a, sel_b), -1 where
     it is (sel_b, sel_a), else 0. ``signs @ f_pt`` is the net contact force

@@ -43,7 +43,8 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import box_geom, tree_map
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -73,29 +74,6 @@ TASKS = {
     "OpenCabinetDrawerModels-v1": (17, 15, 480,
                                    ["box_box_corners", "box_box_onesided", "plane_box"]),
 }
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @functools.lru_cache(maxsize=None)

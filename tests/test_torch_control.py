@@ -23,7 +23,7 @@ command targets exactly, the torques to float32 rounding. Stiff floor
 contacts (gears up to 150 on light links, 8 substeps a control step) can
 take the JAX float32 step itself beyond the tolerances of a float64 step
 in an env: an env where the port and JAX differ beyond a tolerance is
-refereed by the port's plain step run in float64 (``_refereed``): in such
+refereed by the port's plain step run in float64 (``torch_parity.refereed``): in such
 an env neither float32 step may be more than three times further from the
 float64 step than the other, field by field, but one env of a step may
 reach ten.
@@ -50,7 +50,8 @@ from maniskill_tpu_torch.kinematics.mjcf import load_mjcf
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, plain64, refereed,
+                         np_tree as _np, to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -88,34 +89,11 @@ TASKS = {
 # bounce, and a robot lying on the floor is stiffer still)
 SETTLE = {"hopper": 10, "ant": 5, "humanoid": 10}
 # how many times further from the float64 step one float32 step (the port's
-# or JAX's) may be than the other in a refereed env (``_refereed``); one env
+# or JAX's) may be than the other in a refereed env (``refereed``); one env
 # of a step may reach the cap
 REFEREE_FACTOR, REFEREE_CAP = 3.0, 10.0
 MJCF = {"hopper": "control/hopper.xml", "ant": "control/ant.xml",
         "humanoid": "robots/humanoid/humanoid.xml"}
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,54 +285,12 @@ def _check_reset(task):
         np.testing.assert_array_equal(info[key].numpy(), np.asarray(info_j[key]), err_msg=key)
 
 
-def _as64(x):
-    """A state or command with its float tensors in float64."""
-    return x.replace(**{f.name: v.double() for f in dataclasses.fields(x)
-                        if isinstance(v := getattr(x, f.name), torch.Tensor)
-                        and v.is_floating_point()})
-
-
-def _plain64(env, sim, cmd):
-    """The port's plain step of one control step in float64 (torch's
-    default dtype switched for the call): the referee of stiff envs."""
-    prev = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
-        return convert.to_numpy(env.kernel.plain(_as64(sim), _as64(cmd),
-                                                 env.sim_steps_per_control)[0])
-    finally:
-        torch.set_default_dtype(prev)
-
-
-def _refereed(got, ref, f64):
-    """Envs where the port's state ``got`` leaves the JAX state ``ref``
-    beyond a tolerance (dicts of numpy arrays by field), refereed by the
-    port's float64 step ``f64``. In each, field by field, neither float32
-    step may be more than REFEREE_FACTOR times further from the float64
-    step than the other (each distance floored at the tolerance): the port
-    no further than JAX, and, since the referee is the port's own step in
-    float64, JAX no further than the port, which a fault in the port's
-    physics would break in every env it touches. One env of a step may
-    reach REFEREE_CAP (float32 rounding in a stiff contact puts one step
-    several times further than the other now and then, either way). Returns
-    the refereed envs."""
-    out = np.zeros(K, bool)
-    for name, tol in TOL.items():
-        err, err64, jerr64 = (np.abs(a[name] - b[name]).reshape(K, -1).max(1, initial=0.0)
-                              for a, b in ((got, ref), (got, f64), (ref, f64)))
-        bad = err > tol
-        ratio = np.maximum(err64 / np.maximum(jerr64, tol), jerr64 / np.maximum(err64, tol))
-        assert (ratio[bad] <= REFEREE_CAP).all() and (ratio[bad] > REFEREE_FACTOR).sum() <= 1, (
-            name, err[bad], err64[bad], jerr64[bad])
-        out |= bad
-    return out
-
-
 def _compare_step(task, st_j, action, label):
     """One env step of the port from the JAX state ``st_j`` against the
     JAX advance: the physics state (envs beyond a tolerance refereed,
-    ``_refereed``) and the torques; then the port's obs, dense reward and
-    info flags against the JAX ``post`` on the port's own new state.
+    ``torch_parity.refereed``) and the torques; then the port's obs, dense
+    reward and info flags against the JAX ``post`` on the port's own new
+    state.
     Only envs in contact (a point loaded before or after the step) may be
     refereed. Returns the JAX state after the step."""
     tenv = _port(task)
@@ -364,10 +300,11 @@ def _compare_step(task, st_j, action, label):
     got, ref = convert.to_numpy(st_t2.sim), _np(st_j2.sim)
     np.testing.assert_array_equal(st_t2.cmd.qf.numpy(), np.asarray(st_j2.cmd.qf))
     cmd = tenv.agent.controller.set_action(st_t.cmd, st_t.sim.qpos, torch.as_tensor(action))
-    refereed = _refereed(got, ref, _plain64(tenv, st_t.sim, cmd))
+    f64 = plain64(tenv.kernel, st_t.sim, cmd, tenv.sim_steps_per_control)
+    bad = refereed(got, ref, f64, TOL, REFEREE_FACTOR, REFEREE_CAP)
     touch = ((st_t.sim.contact_lam > 0).any(1).numpy() | (got["contact_lam"] > 0).any(1)
              | (ref["contact_lam"] > 0).any(1))
-    assert not (refereed & ~touch).any(), (label, refereed, touch)
+    assert not (bad & ~touch).any(), (label, bad, touch)
     obs_j, rew_j, info_j = _jax_post(task)(_to_jax(st_j2, st_t2), jnp.asarray(action))
     np.testing.assert_allclose(obs_t.numpy(), np.asarray(obs_j), atol=2e-4, err_msg=label)
     np.testing.assert_allclose(rew_t.numpy(), np.asarray(rew_j), atol=1e-5, err_msg=label)

@@ -21,7 +21,6 @@ qvel 2e-4, free pose 2e-5, free vel 5e-4, impulses 5e-3), obs 2e-4, reward
 card: ``test_ee_control_step_kernels_match_plain`` in
 tests/test_torch_megakernel.py, which imports no JAX.)
 """
-import dataclasses
 import functools
 
 import jax
@@ -38,7 +37,7 @@ import maniskill_tpu_torch as mtt
 from maniskill_tpu_torch import convert
 from maniskill_tpu_torch.agents.robots.panda import Panda, PandaWristCam
 from maniskill_tpu_torch.kinematics import chain
-from torch_parity import fast_trace_metadata, jax_env
+from torch_parity import fast_trace_metadata, jax_env, np_tree as _np
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -64,16 +63,6 @@ def _fast_jax_tables():
     with fast_trace_metadata():
         yield
     _jax_step.cache_clear()
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
 
 
 @pytest.mark.parametrize("m", [3, 6])

@@ -42,6 +42,9 @@ import maniskill_tpu_torch.agents.robots.panda_stick, maniskill_tpu_torch.envs.t
 import maniskill_tpu_torch.envs.tasks.push_t, maniskill_tpu_torch.envs.tasks.draw
 import maniskill_tpu_torch.envs.tasks.draw_targets, maniskill_tpu_torch.envs.tasks.benchmarks
 import maniskill_tpu_torch.envs.tasks.assembling_kits, maniskill_tpu_torch.envs.tasks.pick_single_object
+import maniskill_tpu_torch.agents.robots.trifinger, maniskill_tpu_torch.agents.robots.quadruped
+import maniskill_tpu_torch.envs.tasks.rotate_cube, maniskill_tpu_torch.envs.tasks.rotate_valve
+import maniskill_tpu_torch.envs.tasks.quadruped, maniskill_tpu_torch.envs.tasks.humanoid_stand
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 maniskill_tpu_torch.make("RotateSingleObjectInHandLevel2-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("OpenCabinetDrawer-v1", num_envs=2, device="cpu").reset(seed=0)
@@ -51,7 +54,9 @@ _e = maniskill_tpu_torch.make("PullCubeTool-v1", num_envs=2, device="cpu",
                               control_mode="pd_ee_delta_pose")
 _e.reset(seed=0)
 _e.step(numpy.zeros(7, "float32"))
-for _id in ("PushT-v1", "DrawSVG-v1", "FrankaMoveBenchmark-v1", "CustomEnv-v1", "FMBAssembly1Easy-v1"):
+for _id in ("PushT-v1", "DrawSVG-v1", "FrankaMoveBenchmark-v1", "CustomEnv-v1",
+            "FMBAssembly1Easy-v1", "TriFingerRotateCubeLevel4-v1", "RotateCube-v1", "RotateValveLevel3-v1",
+            "AnymalC-Reach-v1", "UnitreeH1Stand-v1"):
     _e = maniskill_tpu_torch.make(_id, num_envs=2, device="cpu")
     _e.reset(seed=0)
     _e.reset(options={"env_idx": [1]})
@@ -82,6 +87,9 @@ def test_make_without_device_raises_without_cuda(monkeypatch):
                  "MS-HumanoidStand-v1", "MS-CartpoleBalance-v1", "PushT-v1", "DrawSVG-v1",
                  "PickSingleObject-v1", "AssemblingKits-v1", "FMBAssembly1Easy-v1",
                  "FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1", "CustomEnv-v1",
-                 "TableTopFreeDraw-v1", "DrawTriangle-v1"):
+                 "TableTopFreeDraw-v1", "DrawTriangle-v1", "TriFingerRotateCubeLevel1-v1",
+                 "RotateCube-v1", "RotateValveDClaw-v1", "RotateValveLevel2-v1",
+                 "AnymalC-Reach-v1", "AnymalC-Spin-v1", "UnitreeGo2-Reach-v1",
+                 "UnitreeH1Stand-v1"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mtt.make(task, num_envs=1)

@@ -35,7 +35,6 @@ differ beyond a tolerance is refereed by the port's plain step run in
 float64: JAX must be beyond that tolerance of the float64 step there, and
 the port may leave it in at most one env more than JAX does.
 """
-import dataclasses
 import functools
 import math
 
@@ -66,7 +65,8 @@ from maniskill_tpu_torch.math.rotations import quat_mul
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hull_stack, hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, plain64, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -92,47 +92,6 @@ TASKS = ("RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
          "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
          "RotateSingleObjectInHandLevel3-v1")
 HULL_FNS = ("sphere_hull", "capsule_hull", "hull_hull")
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
-
-
-def _as64(x):
-    """A state or command with its float tensors in float64."""
-    return x.replace(**{f.name: v.double() for f in dataclasses.fields(x)
-                        if isinstance(v := getattr(x, f.name), torch.Tensor)
-                        and v.is_floating_point()})
-
-
-def _plain64(kern, sim, cmd, n):
-    """The port's plain step in float64 (torch's default dtype switched for
-    the call): the referee of stiff envs."""
-    prev = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
-        return convert.to_numpy(kern.plain(_as64(sim), _as64(cmd), n)[0])
-    finally:
-        torch.set_default_dtype(prev)
 
 
 def _refereed(got, ref, f64, tols):
@@ -464,7 +423,7 @@ def _check_step(task):
         st_t2, obs_t, rew_t, _, info_t = tenv._step(st_t, torch.as_tensor(action))
         got, ref = convert.to_numpy(st_t2.sim), _np(st_j2.sim)
         cmd = tenv.agent.controller.set_action(st_t.cmd, st_t.sim.qpos, torch.as_tensor(action))
-        f64 = _plain64(tenv.kernel, st_t.sim, cmd, tenv.sim_steps_per_control)
+        f64 = plain64(tenv.kernel, st_t.sim, cmd, tenv.sim_steps_per_control)
         refereed = _refereed(got, ref, f64, TOL)
         assert refereed.sum() <= K // 4, (states, refereed)
         ok = ~refereed

@@ -1021,20 +1021,24 @@ def test_slice_follows_a_hand_count(task, floats):
     assert plan.slice_floats() == floats and floats % 4 == 0
 
 
-_IDS = ["AssemblingKits-v1", "CustomEnv-v1", "DrawSVG-v1", "DrawTriangle-v1", "Empty-v1",
-        "FMBAssembly1Easy-v1", "FoldSuitcase-v1", "FoldSuitcaseModels-v1",
-        "FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1", "LiftPegUpright-v1",
-        "MS-AntRun-v1", "MS-AntWalk-v1", "MS-CartpoleBalance-v1", "MS-CartpoleSwingUp-v1",
-        "MS-HopperHop-v1", "MS-HopperStand-v1", "MS-HumanoidRun-v1", "MS-HumanoidStand-v1",
-        "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1",
-        "OpenCabinetDrawer-v1", "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1",
-        "PickCube-v1", "PickSingleHull-v1", "PickSingleObject-v1", "PickSingleYCB-v1",
-        "PlugCharger-v1", "PokeCube-v1", "PullCube-v1", "PullCubeTool-v1", "PushCube-v1",
-        "PushCubeKitchen-v1", "PushT-v1", "RollBall-v1",
-        "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
+_IDS = ["AnymalC-Reach-v1", "AnymalC-Spin-v1", "AssemblingKits-v1", "CustomEnv-v1", "DrawSVG-v1",
+        "DrawTriangle-v1", "Empty-v1", "FMBAssembly1Easy-v1", "FoldSuitcase-v1",
+        "FoldSuitcaseModels-v1", "FrankaMoveBenchmark-v1", "FrankaPickCubeBenchmark-v1",
+        "LiftPegUpright-v1", "MS-AntRun-v1", "MS-AntWalk-v1", "MS-CartpoleBalance-v1",
+        "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1", "MS-HopperStand-v1", "MS-HumanoidRun-v1",
+        "MS-HumanoidStand-v1", "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1", "OpenCabinetDrawer-v1",
+        "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1", "PickCube-v1", "PickSingleHull-v1",
+        "PickSingleObject-v1", "PickSingleYCB-v1", "PlugCharger-v1", "PokeCube-v1", "PullCube-v1",
+        "PullCubeTool-v1", "PushCube-v1", "PushCubeKitchen-v1", "PushT-v1", "RollBall-v1",
+        "RotateCube-v1", "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
-        "RotateSingleObjectInHandLevel3-v1", "StackCube-v1", "TableTopFreeDraw-v1",
-        "TurnFaucet-v1"]
+        "RotateSingleObjectInHandLevel3-v1", "RotateValveDClaw-v1", "RotateValveLevel0-v1",
+        "RotateValveLevel1-v1", "RotateValveLevel2-v1", "RotateValveLevel3-v1",
+        "RotateValveLevel4-v1", "StackCube-v1", "TableTopFreeDraw-v1",
+        "TriFingerRotateCubeLevel0-v1", "TriFingerRotateCubeLevel1-v1",
+        "TriFingerRotateCubeLevel2-v1", "TriFingerRotateCubeLevel3-v1",
+        "TriFingerRotateCubeLevel4-v1", "TurnFaucet-v1", "UnitreeGo2-Reach-v1",
+        "UnitreeH1Stand-v1"]
 
 
 @pytest.mark.parametrize("task", _IDS + ["hull stack"])
@@ -1303,7 +1307,7 @@ def test_humanoid_plan_and_torques():
     caps = megakernel._caps()
     assert 4 * caps["WARPS"] * plan.slice_floats() <= megakernel.SMEM_BLOCK_MAX
     assert e.model.gravity_mask.all()
-    st = e.random_torques(e._state, torch.Generator().manual_seed(0))
+    st = e.random_command(e._state, torch.Generator().manual_seed(0))
     plane = megakernel.pack(plan, st.sim, st.cmd)
     qf = plane[:, plan.i_qf[0]:plan.i_qf[1]]
     np.testing.assert_array_equal(qf, st.cmd.qf)
@@ -1318,7 +1322,7 @@ def test_humanoid_plan_and_torques():
 def test_control_kernel_matches_plain(task, states):
     """The control suite through the CUDA kernel against the plain step on
     the card, K=37, one control step (4 sim steps of 2 substeps) under
-    random torques (``random_torques``) or, for Cartpole, a random slider
+    random torques (``random_command``) or, for Cartpole, a random slider
     action: Cartpole (P = 0, G = 0) from reset states and from states 10
     control steps on, every env within the tolerances; the humanoid (nq 27,
     non-zero qf) from reset states (in the air) and from ``contact_state``
@@ -1343,7 +1347,7 @@ def test_control_kernel_matches_plain(task, states):
         _kernel_vs_plain(cenv.kernel, sim, cmd, n, True, 37)
         assert cenv.kernel.launches == (11 if states == "settled" else 1)
         return
-    st = cenv.contact_state(st, gen) if states == "contact" else cenv.random_torques(st, gen)
+    st = cenv.contact_state(st, gen) if states == "contact" else cenv.random_command(st, gen)
     assert st.cmd.qf[:, 6:].abs().min() > 0
     loaded = _kernel_vs_plain(cenv.kernel, st.sim, st.cmd, n, False, 37, per_env=True)
     assert cenv.kernel.launches == 1
@@ -1471,3 +1475,70 @@ def test_family_kernel_matches_plain(task, states):
     if states == "contact":
         loaded = (aux_ref["f_pt"].abs().sum(-1) > 0).any(1)
         assert float(loaded.float().mean()) >= 0.5
+
+
+# ---- the dexterous and legged families --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["TriFingerRotateCubeLevel4-v1", "RotateValveLevel3-v1"])
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_dexterity_kernel_matches_plain(task, states):
+    """The dexterous scenes through the CUDA kernel against the plain step
+    on the card, K=37, one control step: TriFinger Level4 (a free cube on
+    the floor, three fingertip spheres) from reset states with the targets
+    moved, every env within the tolerances (the fingers start away from the
+    cube), and from ``contact_state`` states (the tips pressed onto the
+    cube) under their own command, refereed by the in-hand rule (the 94 g
+    cube squeezed by three drives); RotateValveLevel3 (a robot-only forest,
+    3-6 spokes per env in ``geom_size``) from reset states (every env where
+    no point carries force in the step within the tolerances) and from
+    contact states (the claw on spokes grown taller: capsule_box points on
+    an active spoke carry force)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st, n = cenv._state, cenv.sim_steps_per_control
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    valve = "Valve" in task
+    if states == "reset":
+        strict = ~touched_in_step(cenv.kernel, st.sim, cmd, n) if valve else True
+    else:
+        strict = False
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, n, strict, 37,
+                              ill_rule=not valve and states == "contact")
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        plan = cenv.kernel.plan
+        fn = "capsule_box" if valve else "sphere_box"
+        assert loaded[:, plan.pfn == megakernel._FNS.index(fn)].any(1).mean() >= 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["AnymalC-Reach-v1", "UnitreeH1Stand-v1"])
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_legged_kernel_matches_plain(task, states):
+    """The legged scenes (PD joint control, a root of 3 slides and 3
+    hinges, the links under gravity; 2 sim steps of 2 substeps a control
+    step) through the CUDA kernel against the plain step on the card,
+    K=37: from reset states under a random action at the bench sigma
+    (``random_command``) and from ``contact_state`` states on the floor
+    (standing, on a side, upside down: the floor points carry force),
+    every env refereed one by one by a float64 plain step (``per_env``),
+    as the control suite's floor robots are."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = cenv._state
+    st = cenv.contact_state(st, gen) if states == "contact" else cenv.random_command(st, gen)
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, st.cmd, cenv.sim_steps_per_control, False,
+                              37, per_env=True)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        assert loaded.any(1).mean() >= 0.5

@@ -20,7 +20,6 @@ Tolerances: the env step those of tests/test_megakernel.py:48-67 (qpos
 kinematic poses, the dots, 2e-5); obs 2e-4, info 1e-5, rewards 1e-4;
 extras exactly (integers, booleans) or within 1e-6 (the outline).
 """
-import dataclasses
 import functools
 import math
 
@@ -39,7 +38,8 @@ from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.shapes import GeomType
-from torch_parity import fast_trace_metadata, jax_env, shared_jit
+from torch_parity import (fast_trace_metadata, jax_env, shared_jit, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -74,29 +74,6 @@ def _fast_jax_tables():
     (tests/torch_parity.py)."""
     with fast_trace_metadata():
         yield
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 def _jax(task):

@@ -10,7 +10,6 @@ free pose 2e-5, free vel 5e-4, impulses 5e-3): both sides are float32 and
 differ only in the order of sums, and contact impulses are in newtons with
 a stiff implicit law, so they take the widest bound.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +26,7 @@ from maniskill_tpu_torch.math import clamps
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, make_jax_env
+from torch_parity import fast_trace_metadata, make_jax_env, np_tree as _np
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -44,17 +43,6 @@ def _fast_jax_tables():
 K = 4
 TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
            contact_lam=5e-3, contact_lam_t=5e-3)
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (the PRNG key is
-    dropped: the port draws with torch generators)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
 
 
 @pytest.fixture(scope="module")

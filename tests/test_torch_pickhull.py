@@ -24,7 +24,6 @@ the port's own float64 step within 1.2e-5 of JAX's); such an env is
 refereed by the JAX float64 step, as chip_smoke.py referees the kernel by
 a float64 plain step. Obs 2e-4, reward and MPPI 1e-4.
 """
-import dataclasses
 import math
 
 import jax
@@ -46,7 +45,8 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
 from maniskill_tpu_torch.utils import building
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, jax_step64, shared_jit, make_jax_env,
+                         np_tree as _np, to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -66,29 +66,6 @@ TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
 HULL_TOL = dict(qpos=5e-5, qvel=5e-4, free_pose=5e-5, free_vel=1e-3,
                 contact_lam=1e-2, contact_lam_t=1e-2)
 PLANE_HULL, BOX_HULL = megakernel._FNS.index("plane_hull"), megakernel._FNS.index("box_hull")
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @pytest.fixture(scope="module")
@@ -271,20 +248,6 @@ def jstep(jenv):
     return shared_jit(jax.vmap(jenv._step_one))
 
 
-def _jax_float64_step(jenv, sim, cmd):
-    """One control step of the JAX engine in float64 (``jax_enable_x64``),
-    from JAX inputs cast to float64; numpy outputs."""
-    step, n = jeng.make_step_fn(jenv.model), jenv.sim_steps_per_control
-
-    def as64(x):
-        return jax.tree.map(
-            lambda a: a.astype(jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating) else a, x)
-
-    with jax.enable_x64(True):
-        out = jax.jit(jax.vmap(lambda s, c: step(s, c, n)))(as64(sim), as64(cmd))
-        return jax.tree.map(np.asarray, out)
-
-
 @pytest.mark.parametrize("states", ["reset", "contact"])
 def test_env_step_matches(jenv, tenv, jstep, states):
     """One env step with random actions from the JAX reset state (a
@@ -314,13 +277,13 @@ def test_env_step_matches(jenv, tenv, jstep, states):
         np.testing.assert_allclose(rew_t.numpy(), np.asarray(rew_j), atol=1e-4)
     else:
         cmd = tenv.agent.controller.set_action(st_t.cmd, st_t.sim.qpos, torch.as_tensor(action))
-        f64 = _jax_float64_step(jenv, st_j.sim, _to_jax(jenv._state.cmd, cmd))
+        f64 = jax_step64(jenv, st_j.sim, _to_jax(jenv._state.cmd, cmd))
         refereed = np.zeros(K, bool)
         for name, tol in HULL_TOL.items():
             err = np.abs(got[name] - np.asarray(getattr(st_j2.sim, name))).reshape(K, -1).max(1)
-            err64 = np.abs(got[name] - getattr(f64, name)).reshape(K, -1).max(1)
+            err64 = np.abs(got[name] - f64[name]).reshape(K, -1).max(1)
             jerr64 = np.abs(np.asarray(getattr(st_j2.sim, name))
-                            - getattr(f64, name)).reshape(K, -1).max(1)
+                            - f64[name]).reshape(K, -1).max(1)
             # where the port's float32 step leaves the JAX float32 step, the
             # JAX float64 step sides with the port
             assert (err64[err > tol] <= tol).all(), (name, err, err64)

@@ -39,7 +39,7 @@ from maniskill_tpu_torch.physics.model import _Struct, tree_map
 from maniskill_tpu_torch.planners import (CEM, CEMConfig, CEMILQR, CEMILQRConfig, ILQR,
                                           ILQRConfig, make_planner, solve_task)
 from maniskill_tpu_torch.planners.ilqr import select_step
-from torch_parity import fast_trace_metadata, make_jax_env
+from torch_parity import fast_trace_metadata, make_jax_env, np_tree as _np
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -52,15 +52,6 @@ def _fast_jax_tables():
     (tests/torch_parity.py): its env builds take seconds, not tens."""
     with fast_trace_metadata():
         yield
-
-
-def _np(obj):
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,6 @@ control step) those the JAX package holds its own kernel to on that scene
 (tests/test_megakernel_big.py:46-67: qpos 3e-5, free pose 3e-5, free vel
 1e-3); obs 2e-4, reward and MPPI 1e-4.
 """
-import dataclasses
 import functools
 
 import jax
@@ -38,7 +37,8 @@ from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -63,29 +63,6 @@ PLUG_TOL = dict(qpos=3e-5, qvel=5e-4, free_pose=3e-5, free_vel=1e-3,
 TASKS = ("PlugCharger-v1", "RollBall-v1")
 ROUND_FNS = ("plane_sphere", "sphere_box", "box_sphere", "sphere_sphere", "plane_capsule",
              "sphere_capsule", "capsule_box", "capsule_capsule")
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,7 +17,6 @@ Tolerances: the env step those of tests/test_megakernel.py:48-67 (qpos
 2e-5, qvel 2e-4, free pose 2e-5, free vel 5e-4, impulses 5e-3), obs 2e-4,
 reward 1e-4, the state readers 1e-5, the solutions' actions 1e-4.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +32,7 @@ from maniskill_tpu_torch import convert
 from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.examples.motionplanning import solutions as tsol
 from maniskill_tpu_torch.physics import megakernel
-from torch_parity import fast_trace_metadata, jax_env
+from torch_parity import fast_trace_metadata, jax_env, np_tree as _np
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -53,16 +52,6 @@ def _fast_jax_tables():
     (tests/torch_parity.py)."""
     with fast_trace_metadata():
         yield
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
 
 
 def _port(task, mode):

@@ -11,7 +11,6 @@ free vel 5e-4, impulses 5e-3 (newtons under a stiff implicit law), obs
 2e-4, reward 1e-4; both sides are float32 and differ in the order of sums.
 Narrowphase outputs are a few float32 operations deep: 1e-5.
 """
-import dataclasses
 import math
 
 import jax
@@ -28,7 +27,8 @@ from maniskill_tpu_torch import convert
 from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -46,29 +46,6 @@ K = 4
 TOL = dict(qpos=2e-5, qvel=2e-4, free_pose=2e-5, free_vel=5e-4,
            contact_lam=5e-3, contact_lam_t=5e-3)
 BOX_BOX = 3  # index of box_box in the kernel's pair-function table
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like``; fields the port does
-    not model (the PRNG key, hull tables) keep ``like``'s values."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,6 @@ reward and MPPI 1e-4; the port's device episode against its host loop
 exactly (one program, the same draws).
 """
 import ast
-import dataclasses
 import functools
 import inspect
 import math
@@ -43,7 +42,8 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import tree_map
 from maniskill_tpu_torch.planners import MPPI, MPPIConfig, run_episode, run_episode_device, solve_task
-from torch_parity import fast_trace_metadata, shared_jit, make_jax_env
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
+                         to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -76,29 +76,6 @@ TASKS = {
     "PegInsertionSide-v1": (9, 1, 12, 328, 43,
                             ["box_box_onesided", "box_box_corners", "plane_box"]),
 }
-
-
-def _np(obj):
-    """JAX dataclass/dict nest -> dict of numpy arrays (PRNG key dropped)."""
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _np(getattr(obj, f.name))
-                for f in dataclasses.fields(obj) if f.name != "rng"}
-    if isinstance(obj, dict):
-        return {k: _np(v) for k, v in obj.items()}
-    return None if obj is None else np.asarray(obj)
-
-
-def _to_jax(like, port):
-    """A port state moved into the JAX state ``like`` (the PRNG key keeps
-    ``like``'s value)."""
-    if isinstance(like, dict):
-        return {k: _to_jax(like[k], port[k]) for k in like}
-    if not dataclasses.is_dataclass(like):
-        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
-    return like.replace(**{f.name: _to_jax(getattr(like, f.name), getattr(port, f.name))
-                           for f in dataclasses.fields(like)
-                           if getattr(like, f.name) is not None
-                           and getattr(port, f.name, None) is not None})
 
 
 @functools.lru_cache(maxsize=None)

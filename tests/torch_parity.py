@@ -41,8 +41,13 @@ def trace_metadata(model):
 
 @contextlib.contextmanager
 def fast_trace_metadata():
-    """``jeng._trace_metadata`` replaced by ``trace_metadata`` inside."""
-    with mock.patch.object(jeng, "_trace_metadata", trace_metadata):
+    """``jeng._trace_metadata`` replaced by ``trace_metadata`` inside, also
+    in the JAX quadruped tasks' module, which imported it by name for its
+    contact masks."""
+    from maniskill_tpu.envs.tasks import quadruped
+
+    with mock.patch.object(jeng, "_trace_metadata", trace_metadata), \
+            mock.patch.object(quadruped, "_trace_metadata", trace_metadata):
         yield
 
 
@@ -111,3 +116,117 @@ def shared_jit(fn):
         return exe(*args)
 
     return call
+
+
+def np_tree(obj):
+    """A JAX dataclass/dict nest as dicts of numpy arrays (the PRNG key
+    dropped)."""
+    import dataclasses
+
+    import numpy as np
+
+    if dataclasses.is_dataclass(obj):
+        return {f.name: np_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj) if f.name != "rng"}
+    if isinstance(obj, dict):
+        return {k: np_tree(v) for k, v in obj.items()}
+    return None if obj is None else np.asarray(obj)
+
+
+def to_jax(like, port):
+    """A port state moved into the JAX state ``like`` (the PRNG key keeps
+    ``like``'s value)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from maniskill_tpu_torch import convert
+
+    if isinstance(like, dict):
+        return {k: to_jax(like[k], port[k]) for k in like}
+    if not dataclasses.is_dataclass(like):
+        return jnp.asarray(convert.to_numpy(port)).astype(like.dtype)
+    return like.replace(**{f.name: to_jax(getattr(like, f.name), getattr(port, f.name))
+                           for f in dataclasses.fields(like)
+                           if getattr(like, f.name) is not None
+                           and getattr(port, f.name, None) is not None})
+
+
+def plain64(kern, sim, cmd, n):
+    """The port's plain step of ``n`` sim steps in float64 (torch's default
+    dtype switched for the call), as numpy arrays by field: the referee of
+    stiff envs."""
+    import dataclasses
+
+    import torch
+
+    from maniskill_tpu_torch import convert
+
+    def as64(x):
+        return x.replace(**{f.name: v.double() for f in dataclasses.fields(x)
+                            if isinstance(v := getattr(x, f.name), torch.Tensor)
+                            and v.is_floating_point()})
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return convert.to_numpy(kern.plain(as64(sim), as64(cmd), n)[0])
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def jax_step64(jenv, sim, cmd):
+    """One control step of the JAX env's engine in float64
+    (``jax.enable_x64``), from JAX inputs cast to float64; numpy arrays by
+    field."""
+    import jax.numpy as jnp
+    import numpy as np
+    from maniskill_tpu.physics import engine as jeng
+
+    step, n = jeng.make_step_fn(jenv.model), jenv.sim_steps_per_control
+
+    def as64(x):
+        return jax.tree.map(
+            lambda a: a.astype(jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating) else a, x)
+
+    with jax.enable_x64(True):
+        out = jax.jit(jax.vmap(lambda s, c: step(s, c, n)))(as64(sim), as64(cmd))
+        return np_tree(jax.tree.map(np.asarray, out))
+
+
+def refereed(got, ref, f64, tols, factor=3.0, cap=10.0, jax64=None):
+    """Envs where the port's state ``got`` leaves the JAX state ``ref``
+    beyond a tolerance (dicts of numpy arrays by field), refereed by the
+    port's float64 step ``f64``. In each, field by field, neither float32
+    step may be more than ``factor`` times further from the float64 step
+    than the other (each distance floored at the tolerance): the port no
+    further than JAX, and, since the referee is the port's own step in
+    float64, JAX no further than the port, which a fault in the port's
+    physics would break in every env it touches. One env of a step may
+    reach ``cap`` (float32 rounding in a stiff contact puts one step
+    several times further than the other now and then, either way).
+    ``jax64``, where given, returns JAX's own step in float64 (called only
+    when more than that one env is off): an env where JAX's float32 step is
+    the further one then also passes if JAX's float64 step agrees with the
+    port's within the tolerance, an independent referee that confirms the
+    port's. Returns the refereed envs."""
+    import numpy as np
+
+    k = next(iter(got.values())).shape[0]
+    out = np.zeros(k, bool)
+    j64 = None
+    for name, tol in tols.items():
+        err, err64, jerr64 = (np.abs(a[name] - b[name]).reshape(k, -1).max(1, initial=0.0)
+                              for a, b in ((got, ref), (got, f64), (ref, f64)))
+        bad = err > tol
+        port_r = err64 / np.maximum(jerr64, tol)
+        jax_r = jerr64 / np.maximum(err64, tol)
+        port_far, jax_far = bad & (port_r > factor), bad & (jax_r > factor)
+        if port_far.sum() + jax_far.sum() > 1 and jax_far.any() and jax64 is not None:
+            j64 = jax64() if j64 is None else j64
+            agree = np.abs(f64[name] - j64[name]).reshape(k, -1).max(1, initial=0.0) <= tol
+            jax_far &= ~agree
+        assert (np.maximum(port_r, jax_r)[bad] <= cap).all() and (
+            port_far.sum() + jax_far.sum() <= 1), (name, err[bad], err64[bad], jerr64[bad])
+        out |= bad
+    return out
