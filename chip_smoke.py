@@ -122,16 +122,15 @@ Phases (each passes or ends the script with a non-zero exit):
      every ported solution at B=1024 on K2 (success rate, env steps/s, one
      K2 and one K1 launch a control step, final states finite; the drawing
      solutions of DrawTriangle-v1 and DrawSVG-v1 among them: the Panda
-     stick, K1 at n = 3), and PickCube-v1, FoldSuitcase-v1 and
-     DrawTriangle-v1 at B=256 on K2 and on the plain step, whose success
-     rates must agree;
+     stick, K1 at n = 3), and PickCube-v1 at B=256 on K2 and on the plain
+     step, whose success rates must agree;
   9. the rest of the Panda family: K2 against the plain step at K=4096
      (``[family]``, ``kernel_phase``) on PushT-v1, AssemblingKits-v1,
      FMBAssembly1Easy-v1, DrawSVG-v1 (500 geomless dots in the input row),
      PickSingleObject-v1 and FrankaMoveBenchmark-v1, with each scene's
      slice, resident envs per SM and the dispatch's choice of K2; PushT-v1
      MPPI at the bench shape (``[mppi]``: rollouts/s, K2's ms, bound and
-     share of the wall, device busy time and ops of a profiled solve); the
+     share of the wall); the
      Franka benchmarks' ``env.step`` at B=4096, reward "none"
      (``[envstep]``: env steps/s, K2's share); the reset surface at K=4096
      (``[reset]``: a partial reset keeps the other envs bit for bit and
@@ -153,7 +152,23 @@ Phases (each passes or ends the script with a non-zero exit):
      and UnitreeH1Stand-v1 (with a profiled solve), the legged paths'
      share of finite rollouts gated at the plain step's on the same draws
      (``finite_against_plain``);
-  11. print one JSON line of the kernels (launches on their paths, time per
+  11. the WidowX's bridge twins, the two-robot family, PlaceSphere-v1 and
+     PickCubeYCB-v1: K2 against the plain step at K=4096 (``[bridge]``,
+     ``[tworobot]``, ``kernel_phase``) on PutEggplantInBasketScene-v1 and
+     PutSpoonOnTableClothInScene-v1 (the WidowX's gripper capsule on a hull:
+     capsule_hull), PutCarrotOnPlateInScene-v1 (a hull on a hull:
+     hull_hull) and StackGreenCubeOnYellowCubeBakedTexInScene-v1 (box_box),
+     20 sim steps a control step; TwoRobotPushCube-v1, TwoRobotPickCube-v1,
+     TwoRobotStackCube-v1 (two actuated Panda trees in one forest),
+     TwoRobotFold-v1 (three trees, F = 0), PlaceSphere-v1 and PickCubeYCB-v1
+     (hull_hull between its clutter), each id's route, slice and resident
+     envs per SM; TwoRobotPickCubeYCB-v1 routed to the plain step, the cap
+     it breaks named (n_all 36 > NALL_MAX 32), its ``env.step`` timed at
+     B=1024; K1 on the WidowX's own pd_ee_delta_pose IK systems; MPPI at the
+     bench shape on PutEggplantInBasketScene-v1, TwoRobotStackCube-v1 and
+     PickCubeYCB-v1; PickCubeYCB-v1's scripted solution runs in phase 8's
+     ``[solutions]``;
+  12. print one JSON line of the kernels (launches on their paths, time per
      launch, bound, plain version's and library call's time), the card's
      name and power limit, and last the contract line
      ``{"ok": true, "device": {...}}``. ``[lap]`` lines give each phase's
@@ -1032,7 +1047,7 @@ def control_phase(mtt, engine, megakernel, task, k=K_CHECK):
 
 def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band=(-0.005, 0.005),
                  contact_cmd="perturbed", inhand=False, limit_gate=False, per_env=False,
-                 ill_rule=None):
+                 ill_rule=None, touched_reset=False):
     """Phase 2 for one task at ``k`` envs: K2 against its plain step,
     settle, time, bound. ``settle_band``: how far (m) a free body that
     starts apart may end from its starting height after 10 control steps.
@@ -1061,7 +1076,11 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
     reach its open-limit band). ``ill_rule``: the in-hand scenes' share
     rule for the contact states alone (default: with ``inhand``), where the
     reset states are held as usual (the TriFinger scenes: the fingers start
-    away from the cube)."""
+    away from the cube). ``touched_reset``: the reset envs where a point
+    carries force within the step are refereed too, and the settle band
+    holds them as well, all but the interpenetrating ones (the bridge
+    twins', the two-robot and the clutter scenes: hulls set down on a
+    vertex roll onto a face, objects rest on the table)."""
     import torch
     from maniskill_tpu_torch._cuda import event_ms
 
@@ -1132,6 +1151,13 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
               f"{int(inside.sum())} start with a robot link inside the object, "
               f"{int((overlap & ~inside).sum())} more carry force within the step")
         kinds = {"start inside": inside, "touch within the step": overlap & ~inside}
+    apart = ~overlap  # the envs whose free bodies start apart: the settle band's
+    if touched_reset:
+        touched = touched_in_step(kern, st.sim, cmd, n_ctrl) & ~overlap
+        print(f"[check] {task} reset: a point carries force within the step in "
+              f"{int(touched.sum())} more of {k} envs (refereed)")
+        kinds = {"interpenetrating": overlap, "touch within the step": touched}
+        overlap = overlap | touched
     err_reset, held_reset, _ = compare("reset", st.sim, cmd, referee=overlap, kinds=kinds)
     # b) states in contact: every pair function carries force. Stiff
     # contacts amplify float32 rounding, and a force law with thresholds
@@ -1169,7 +1195,8 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
         if held < 0.8:
             fail(f"{task}: only {100 * held:.1f} % of the objects stayed on the hand")
         settle_band = None
-    dz = (sim.free_pose[..., 2] - st.sim.free_pose[..., 2])[~overlap]
+    dz = sim.free_pose[..., 2] - st.sim.free_pose[..., 2]
+    dz = dz[apart] if touched_reset else dz[~overlap]
     if env.model.n_free == 0:  # robot-only: no free body to settle
         settle_band = None
         limit_share = forest_settle(env, kern, cst, ccmd, task, limit_gate)
@@ -1178,8 +1205,7 @@ def kernel_phase(mtt, engine, megakernel, task, branches, k=K_CHECK, settle_band
             fail(f"{task}: free bodies did not settle: height change in [{float(dz.min()):.4f}, "
                  f"{float(dz.max()):.4f}] m, allowed {settle_band}")
         print(f"[check] {task} settle: height change in [{float(dz.min()):.5f}, "
-              f"{float(dz.max()):.5f}] m in the {int((~overlap).sum())} envs whose bodies start "
-              "apart")
+              f"{float(dz.max()):.5f}] m in the {dz.shape[0]} envs whose bodies start apart")
 
     # kernel time per launch (one control step: its sim steps of the
     # scene's substeps), its bound and the plain step's time, on both input
@@ -1821,6 +1847,67 @@ def modes_phase(mtt, megakernel, solve_kernel):
     return out
 
 
+def _k1_library(A, b):
+    """The library call of K1's function: ``cholesky_ex`` + ``cholesky_solve``."""
+    import torch
+
+    L, _info = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def ik_systems_check(env, st, a, n, tag, solve_kernel, linalg):
+    """K1 on a task-space controller's own IK systems: the env's controller
+    sets the action ``a`` on the states ``st`` once through K1 and once
+    through its plain version; the (K, n, n) systems of the first through
+    K1 against the plain version, and the two targets, within K1_TOL. K1's
+    time (launches queued back to back), the plain version's and the
+    library call's, and its bound. Returns the kernels line's numbers."""
+    import torch
+    from maniskill_tpu_torch._cuda import event_ms, queued_ms
+
+    ctrl, k = env.agent.controller, st.sim.qpos.shape[0]
+    aux = _ik_aux(env, st)
+    systems, k1_solve = [], solve_kernel.solve_psd
+
+    def capture(A, b):
+        systems.append((A.contiguous(), b.contiguous()))
+        return k1_solve(A, b)
+
+    solve_kernel.solve_psd = capture
+    try:
+        cmd_k = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
+        solve_kernel.solve_psd = linalg.solve_psd
+        cmd_p = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
+    finally:
+        solve_kernel.solve_psd = k1_solve
+    A, b = systems[0]
+    if A.shape != (k, n, n):
+        fail(f"{tag}: IK systems of shape {tuple(A.shape)}, not {(k, n, n)}")
+    x_k, x_p = solve_kernel.launch(A, b), linalg.solve_psd(A, b)
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    t_err = float((cmd_k.target_qpos - cmd_p.target_qpos).abs().max())
+    lib_err = float((_k1_library(A, b) - x_k).abs().max())
+    if not (err <= K1_TOL and t_err <= K1_TOL):
+        fail(f"{tag}: K1 against its plain version {err:.3e}, the targets {t_err:.3e} "
+             f"(tol {K1_TOL:g})")
+    k_ms = queued_ms(lambda: solve_kernel.launch(A, b), 50)
+    p_ms = event_ms(lambda: linalg.solve_psd(A, b), 10)
+    l_ms = event_ms(lambda: _k1_library(A, b), 20)
+    nbytes, ops = solve_kernel.work(k, n)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    diag = torch.diagonal(A, dim1=1, dim2=2)
+    print(f"{tag}: K1 on the controller's {k} IK systems (n={n}, diagonal "
+          f"{float(diag.min()):.4f} to {float(diag.max()):.4f}): max |kernel - plain| "
+          f"{err:.3e}, targets {t_err:.3e} (tol {K1_TOL:g}); kernel {k_ms:.4f} ms "
+          f"(queued), plain {p_ms:.4f} ms, library {l_ms:.4f} ms (max |lib - kernel| "
+          f"{lib_err:.1e}), bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> "
+          f"{bytes_ms:.5f} ms, {ops:.0f} ops -> {ops_ms:.5f} ms)", flush=True)
+    return dict(max_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
     """[ee]: the task-space modes on PickCube-v1. For pd_ee_delta_pose (n =
     6) and pd_ee_delta_pos (n = 3): the IK systems of the controller on
@@ -1836,11 +1923,6 @@ def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
     dims, K1 launched once a rollout step. Returns the kernels line's
     numbers of K1 by n, and K2's MPPI path under pd_ee_delta_pose."""
     import torch
-    from maniskill_tpu_torch._cuda import event_ms, queued_ms
-
-    def library(A, b):
-        L, _info = torch.linalg.cholesky_ex(A)
-        return torch.cholesky_solve(b[..., None], L)[..., 0]
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -1848,45 +1930,9 @@ def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
     for mode, n in (("pd_ee_delta_pose", 6), ("pd_ee_delta_pos", 3)):
         env = mtt.make("PickCube-v1", num_envs=K_CHECK, reward_mode="dense", control_mode=mode)
         env.reset(seed=0)
-        st, ctrl = env._state, env.agent.controller
+        st = env._state
         a = 2 * torch.rand((K_CHECK, env.action_dim), generator=gen, device="cuda") - 1
-        aux = _ik_aux(env, st)
-        systems, k1_solve = [], solve_kernel.solve_psd
-
-        def capture(A, b):
-            systems.append((A.contiguous(), b.contiguous()))
-            return k1_solve(A, b)
-
-        solve_kernel.solve_psd = capture
-        try:
-            cmd_k = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
-            solve_kernel.solve_psd = linalg.solve_psd
-            cmd_p = ctrl.set_action(st.cmd, st.sim.qpos, a, aux=aux)
-        finally:
-            solve_kernel.solve_psd = k1_solve
-        A, b = systems[0]
-        if A.shape != (K_CHECK, n, n):
-            fail(f"[ee] {mode}: IK systems of shape {tuple(A.shape)}, not {(K_CHECK, n, n)}")
-        x_k, x_p = solve_kernel.launch(A, b), linalg.solve_psd(A, b)
-        torch.cuda.synchronize()
-        err = float((x_k - x_p).abs().max())
-        t_err = float((cmd_k.target_qpos - cmd_p.target_qpos).abs().max())
-        lib_err = float((library(A, b) - x_k).abs().max())
-        if not (err <= K1_TOL and t_err <= K1_TOL):
-            fail(f"[ee] {mode}: K1 against its plain version {err:.3e}, the targets "
-                 f"{t_err:.3e} (tol {K1_TOL:g})")
-        k_ms = queued_ms(lambda: solve_kernel.launch(A, b), 50)
-        p_ms = event_ms(lambda: linalg.solve_psd(A, b), 10)
-        l_ms = event_ms(lambda: library(A, b), 20)
-        nbytes, ops = solve_kernel.work(K_CHECK, n)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        diag = torch.diagonal(A, dim1=1, dim2=2)
-        print(f"[ee] {mode}: K1 on the controller's {K_CHECK} IK systems (n={n}, diagonal "
-              f"{float(diag.min()):.4f} to {float(diag.max()):.4f}): max |kernel - plain| "
-              f"{err:.3e}, targets {t_err:.3e} (tol {K1_TOL:g}); kernel {k_ms:.4f} ms "
-              f"(queued), plain {p_ms:.4f} ms, library {l_ms:.4f} ms (max |lib - kernel| "
-              f"{lib_err:.1e}), bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes} B -> "
-              f"{bytes_ms:.5f} ms, {ops:.0f} ops -> {ops_ms:.5f} ms)", flush=True)
+        numbers = ik_systems_check(env, st, a, n, f"[ee] {mode}", solve_kernel, linalg)
         # no host sync on the IK path: one rollout step under the sync check
         env._rollout_step(st, a)
         torch.cuda.synchronize()
@@ -1901,7 +1947,7 @@ def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
             fail(f"[ee] {mode}: the rollout step gave non-finite state or reward")
         print(f"[ee] {mode}: one rollout step of {K_CHECK} envs under "
               f"set_sync_debug_mode('error'): no host sync", flush=True)
-        del env, st, st2, A, b, systems
+        del env, st, st2
         torch.cuda.empty_cache()
         path = mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, "PickCube-v1", 42,
                           control_mode=mode, bound_every=25, profile=False)
@@ -1909,10 +1955,7 @@ def ee_phase(mtt, megakernel, solve_kernel, linalg, planners):
               f"{path['path_ms']:.4f} ms a launch, K1 (n={n}) {path['k1_path_ms']:.4f} ms a "
               f"launch, {path['k1_launches'] // (TIMED_SOLVES + 1)} K1 launches a solve",
               flush=True)
-        k1[n] = dict(launches=path["k1_launches"], max_err=err, ms=k_ms, plain_ms=p_ms,
-                     library_ms=l_ms, bound_ms=max(bytes_ms, ops_ms),
-                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                     path_ms=path["k1_path_ms"])
+        k1[n] = numbers | dict(launches=path["k1_launches"], path_ms=path["k1_path_ms"])
         if n == 6:
             k2 = path
     return k1, k2
@@ -1924,10 +1967,9 @@ def solutions_phase(mtt, megakernel, solve_kernel):
     every ported scripted solution at K_SOL envs on K2 (seed 0, no reset
     noise): the success rate, env steps/s (control steps x envs over the
     synchronized wall), K2 and K1 launched once a control step, the final
-    states finite; then PickCube-v1, FoldSuitcase-v1 and DrawTriangle-v1 at
-    K_SOL_AB envs on K2 and on the plain step (``sim_backend="torch"``), the
-    same seed: the success rates may differ by 3 binomial standard errors
-    of the difference plus 0.02. Returns the kernels line's numbers, with
+    states finite; then PickCube-v1 at K_SOL_AB envs on K2 and on the plain
+    step (``sim_backend="torch"``), the same seed: the success rates may
+    differ by 3 binomial standard errors of the difference plus 0.02. Returns the kernels line's numbers, with
     each solution's success rate, env steps/s and K2 launches."""
     import math
 
@@ -1989,7 +2031,10 @@ def solutions_phase(mtt, megakernel, solve_kernel):
         runs[task] = dict(success=rates[task], launches=k2, env_steps_per_s=rate)
         out["launches"] += k2
         torch.cuda.empty_cache()
-    for task in ("PickCube-v1", "FoldSuitcase-v1", "DrawTriangle-v1"):
+    # PickCube's alone since the WidowX and two-robot phases were added
+    # (FoldSuitcase's and DrawTriangle's plain-step runs took 87 s): the
+    # smoke stays inside its time limit
+    for task in ("PickCube-v1",):
         p_k, *_ = run(task, K_SOL_AB)
         p_p, *_ = run(task, K_SOL_AB, backend="torch")
         se = math.sqrt((p_k * (1 - p_k) + p_p * (1 - p_p)) / K_SOL_AB)
@@ -2316,6 +2361,203 @@ def finite_against_plain(mtt, MPPI, MPPIConfig, task):
     return dict(finite_share=shares["auto"], plain_finite_share=p)
 
 
+def _fn_points(plan, fn, robot=None):
+    """(P,) points of pair function ``fn`` on the card; ``robot``: with a
+    robot link on either side (True) or on neither (False)."""
+    import torch
+
+    from maniskill_tpu_torch.physics.megakernel import _FNS
+
+    pts = plan.pfn == _FNS.index(fn)
+    if robot is not None:
+        side = (plan.pra >= 0) | (plan.prb >= 0)
+        pts &= side if robot else ~side
+    return torch.as_tensor(pts, device="cuda")
+
+
+def bridge_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the bridge twins' contact states (the
+    WidowX's gripper capsule pressed on the source's top, the source set
+    on the target): the capsule on the eggplant and on the spoon
+    (capsule_hull), the carrot on the plate (hull_hull; both halves of its
+    points counted: the carrot's cloud against the plate's planes, then the
+    plate's against the carrot's), the green cube on the yellow (box_box);
+    friction on the source. The carrot's capsule_hull and the cubes'
+    capsule_box shares are printed."""
+    import numpy as np
+    import torch
+
+    from maniskill_tpu_torch.physics.hulls import HULL_P
+
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    cap_hull, hull_hull = _fn_points(plan, "capsule_hull"), _fn_points(plan, "hull_hull")
+    cap_box, box_box = _fn_points(plan, "capsule_box", True), _fn_points(plan, "box_box")
+    src = env.model.geom_indices(env.source_name)
+    on_src = torch.as_tensor(np.isin(plan.pga, src) | np.isin(plan.pgb, src), device="cuda")
+    shares = {name: float(loaded[:, m].any(1).float().mean()) for name, m in (
+        ("capsule_hull", cap_hull), ("hull_hull", hull_hull), ("capsule_box", cap_box),
+        ("box_box", box_box)) if bool(m.any())}
+    line = ", ".join(f"{k} {100 * v:.1f} %" for k, v in shares.items())
+    if bool(hull_hull.any()):
+        half = torch.as_tensor(plan.pcorner >= HULL_P, device="cuda") & hull_hull
+        line += (f"; hull_hull points loaded: first half {int(loaded[:, hull_hull & ~half].sum())}"
+                 f", second (flipped) half {int(loaded[:, half].sum())}")
+    print(f"[bridge] {env.env_id} K={loaded.shape[0]} contact: envs with points loaded: {line}",
+          flush=True)
+    out = {"friction lam_t nonzero (source)": lam_t[:, on_src].any(1)}
+    want = {"PutEggplantInBasketScene-v1": ("capsule_hull", cap_hull),
+            "PutSpoonOnTableClothInScene-v1": ("capsule_hull", cap_hull),
+            "PutCarrotOnPlateInScene-v1": ("hull_hull", hull_hull),
+            "StackGreenCubeOnYellowCubeBakedTexInScene-v1": ("box_box", box_box)}[env.env_id]
+    out[f"{want[0]} loaded"] = loaded[:, want[1]].any(1)
+    return out
+
+
+def tworobot_branches(env, plan, cst, loaded, depth):
+    """What must carry force in the two-robot family's, PlaceSphere's and
+    PickCubeYCB's contact states: each grasping arm's fingers on its cube
+    (box_box_corners with a robot link), the cube on the table; cube A on
+    cube B (TwoRobotStackCube: box_box); the sphere against the fingers,
+    the table or the bin's bottom (sphere_box); the stacked distractors
+    (PickCubeYCB: hull_hull) beside PickCube's grasp; friction."""
+    import torch
+
+    lam_t = cst.sim.contact_lam_t.abs().sum(-1) > 0
+    k = loaded.shape[0]
+    out = {"friction lam_t nonzero": lam_t.any(1)}
+    if env.env_id == "PlaceSphere-v1":
+        held = torch.arange(k, device="cuda") % 4 != 3
+        out["finger-sphere sphere_box loaded (grasps)"] = loaded[held][
+            :, _fn_points(plan, "sphere_box", True)].sum(1) >= 2
+        # the sphere fits its bin exactly (radius = inner half extent): set
+        # on the bottom it leaves it within the contact states' control
+        # step in most envs, so the bin's share is printed, not gated
+        in_bin = loaded[~held][:, _fn_points(plan, "sphere_box", False)].any(1)
+        print(f"[tworobot] PlaceSphere-v1 K={k} contact: sphere_box points without a robot "
+              f"link (the bin, the table) loaded in {100 * float(in_bin.float().mean()):.1f} % "
+              f"of the envs with the sphere in its bin", flush=True)
+        return out
+    out["finger-object box_box_corners loaded"] = loaded[
+        :, _fn_points(plan, "box_box_corners", True)].sum(1) >= 4
+    if env.env_id == "TwoRobotStackCube-v1":
+        out["cubeA-cubeB box_box loaded"] = loaded[:, _fn_points(plan, "box_box")].any(1)
+    if env.env_id == "PickCubeYCB-v1":
+        out["distractor on distractor hull_hull loaded"] = loaded[
+            :, _fn_points(plan, "hull_hull")].any(1)
+    return out
+
+
+def bridge_phase(mtt, engine, megakernel, solve_kernel, linalg):
+    """[bridge]: the WidowX's BridgeData v2 twins. K2 against its plain step
+    at K_CHECK envs (``kernel_phase``: 20 sim steps a control step; reset
+    envs where a point carries force within the step and the contact
+    states refereed env by env against a float64 plain step, as hull and
+    stacked contacts are ill-conditioned in float32; contact states under
+    their own command; settle, time, bound, slice and resident envs per SM,
+    the dispatch's choice of K2) on the four ids, with the capsule_hull,
+    hull_hull and box_box branches gated (``bridge_branches``); then K1 on
+    the WidowX's own pd_ee_delta_pose IK systems (n = 6) from a bridge
+    reset (``ik_systems_check``, within K1_TOL) and five ``env.step`` calls
+    under that mode through the entry point, K1 and K2 counted from zero
+    just before and read just after (one launch each a step). Returns each
+    task's numbers and K1's."""
+    import torch
+
+    out = {}
+    for task in ("PutEggplantInBasketScene-v1", "PutSpoonOnTableClothInScene-v1",
+                 "PutCarrotOnPlateInScene-v1", "StackGreenCubeOnYellowCubeBakedTexInScene-v1"):
+        out[task] = kernel_phase(mtt, engine, megakernel, task, bridge_branches,
+                                 settle_band=(-0.02, 0.005), contact_cmd="own", per_env=True,
+                                 touched_reset=True)
+        torch.cuda.empty_cache()
+    task = "PutCarrotOnPlateInScene-v1"
+    env = mtt.make(task, num_envs=K_CHECK, reward_mode="dense", control_mode="pd_ee_delta_pose")
+    env.reset(seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    a = 2 * torch.rand((K_CHECK, env.action_dim), generator=gen, device="cuda") - 1
+    k1 = ik_systems_check(env, env._state, a, 6, f"[bridge] WidowX {task} pd_ee_delta_pose",
+                          solve_kernel, linalg)
+    steps = 5
+    env.kernel.launches = solve_kernel.launches = 0
+    for _ in range(steps):
+        obs, reward, *_ = env.step(0.3 * a)
+    torch.cuda.synchronize()
+    if (env.kernel.launches, solve_kernel.launches) != (steps, steps):
+        fail(f"[bridge] {task} pd_ee_delta_pose: {steps} env steps launched K2 "
+             f"{env.kernel.launches} and K1 {solve_kernel.launches} times")
+    if not (torch.isfinite(obs).all() and torch.isfinite(reward).all()):
+        fail(f"[bridge] {task} pd_ee_delta_pose: env.step gave non-finite obs or reward")
+    print(f"[bridge] {task} pd_ee_delta_pose: {steps} env.step calls at B={K_CHECK} launched "
+          f"K2 {env.kernel.launches} and K1 {solve_kernel.launches} times", flush=True)
+    k1["launches"] = solve_kernel.launches
+    del env
+    torch.cuda.empty_cache()
+    return out, k1
+
+
+def tworobot_phase(mtt, engine, megakernel):
+    """[tworobot]: the two-robot family, PlaceSphere-v1 and PickCubeYCB-v1.
+    K2 against its plain step at K_CHECK envs (``kernel_phase``, each id's
+    route, slice bytes and resident envs per SM printed): TwoRobotPushCube,
+    TwoRobotPickCube and TwoRobotStackCube (two actuated Panda trees in one
+    forest, nq 18: each arm grasping its cube, cube A on cube B), PlaceSphere
+    (sphere_box, the five-box bin) and PickCubeYCB (two clutter hulls, one
+    on the other: hull_hull), reset envs with a point loaded within the
+    step and the contact states refereed env by env against a float64
+    plain step; TwoRobotFold (a robot-only forest of three trees: the left
+    arm's fingers pressing the lid, cross-tree box_box_corners, the
+    articulated scenes' rule). Then TwoRobotPickCubeYCB-v1, whose n_all 36
+    is beyond K2's NALL_MAX: its dispatch must choose the plain step and
+    name that cap, and its ``env.step`` is timed at K_SOL envs. Returns
+    each task's numbers."""
+    import torch
+
+    out = {}
+    for task in ("TwoRobotPushCube-v1", "TwoRobotPickCube-v1", "TwoRobotStackCube-v1",
+                 "PlaceSphere-v1", "PickCubeYCB-v1"):
+        # PickCubeYCB's distractors start 5 and 8 cm up and fall onto the table
+        band = (-0.1, 0.005) if task == "PickCubeYCB-v1" else (-0.03, 0.005)
+        out[task] = kernel_phase(mtt, engine, megakernel, task, tworobot_branches,
+                                 settle_band=band, contact_cmd="own", per_env=True,
+                                 touched_reset=True)
+        print(f"[tworobot] {task}: route K2; slice {out[task]['slice_bytes']} B, "
+              f"{out[task]['envs_per_sm']} envs resident per SM", flush=True)
+        torch.cuda.empty_cache()
+    task = "TwoRobotFold-v1"
+    out[task] = kernel_phase(mtt, engine, megakernel, task, art_branches, contact_cmd="own")
+    print(f"[tworobot] {task}: route K2; slice {out[task]['slice_bytes']} B, "
+          f"{out[task]['envs_per_sm']} envs resident per SM", flush=True)
+    torch.cuda.empty_cache()
+    task = "TwoRobotPickCubeYCB-v1"
+    env = mtt.make(task, num_envs=K_SOL, reward_mode="dense")
+    refusal = megakernel.refusal(env.model)
+    if env.kernel is not None or env.kernel_refusal != refusal or refusal is None:
+        fail(f"[tworobot] {task}: the dispatch chose {'K2' if env.kernel else 'the plain step'}"
+             f" ({env.kernel_refusal!r}), supports' refusal {refusal!r}")
+    env.reset(seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    steps = 5
+    env.step(env.sample_action(gen))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        obs, reward, *_ = env.step(env.sample_action(gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not (torch.isfinite(obs).all() and torch.isfinite(reward).all()):
+        fail(f"[tworobot] {task}: env.step on the plain step gave non-finite obs or reward")
+    m = env.model
+    print(f"[tworobot] {task}: route plain step ({refusal}; nq {m.nq}, F {m.n_free}, G "
+          f"{len(m.geoms)}, P {m.n_points}); env.step at B={K_SOL}: {steps * K_SOL / dt:.1f} env "
+          f"steps/s ({1e3 * dt / steps:.1f} ms a step)", flush=True)
+    out[task] = dict(route="plain step", refusal=refusal, env_steps_per_s=steps * K_SOL / dt)
+    del env
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -2511,13 +2753,13 @@ def main():
     torch.cuda.empty_cache()
     family = family_phase(mtt, engine, megakernel)
     lap("9 [mppi]")
+    # no profiled solve here since the WidowX and two-robot phases were
+    # added (H1's is kept): the smoke stays inside its time limit
     pusht = family["PushT-v1"] | mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig,
-                                            "PushT-v1", 31)
+                                            "PushT-v1", 31, profile=False)
     print(f"[mppi] PushT-v1 MPPI at the bench shape: {pusht['rps']:.1f} rollouts/s, K2 "
           f"{pusht['path_ms']:.4f} ms a launch (bound {pusht['path_bound_ms']:.5f} ms), "
-          f"{100 * pusht['wall_share']:.1f} % of the wall; device busy "
-          f"{pusht.get('busy_ms', float('nan')):.1f} ms and {pusht.get('device_ops', 0)} device "
-          "ops in the profiled solve", flush=True)
+          f"{100 * pusht['wall_share']:.1f} % of the wall", flush=True)
     torch.cuda.empty_cache()
     lap("9 [envstep]")
     envstep = envstep_phase(mtt)
@@ -2551,6 +2793,26 @@ def main():
                  f"{100 * n['plain_finite_share']:.2f} %)" if floor_robot else "")
               + (f"; device busy {n['busy_ms']:.1f} ms and {n['device_ops']} device ops in the "
                  "profiled solve" if "busy_ms" in n else ""), flush=True)
+    lap("11 [bridge]")
+    # ---- 11. the WidowX's bridge twins, the two-robot family, PlaceSphere
+    # and PickCubeYCB: K2 on their scenes, K1 on the WidowX's IK systems,
+    # MPPI on three of them at the bench shape ----
+    torch.cuda.empty_cache()
+    bridge, k1_widowx = bridge_phase(mtt, engine, megakernel, solve_kernel, linalg)
+    lap("11 [tworobot]")
+    two = tworobot_phase(mtt, engine, megakernel)
+    lap("11 [mppi]")
+    for task, obs_dim in (("PutEggplantInBasketScene-v1", 33), ("TwoRobotStackCube-v1", 67),
+                          ("PickCubeYCB-v1", 42)):
+        torch.cuda.empty_cache()
+        paths[task] = n = mppi_phase(mtt, megakernel, planners.MPPI, planners.MPPIConfig, task,
+                                     obs_dim, profile=False)
+        print(f"[mppi] {task} MPPI at the bench shape: {n['rps']:.1f} rollouts/s, K2 "
+              f"{n['path_ms']:.4f} ms a launch (bound {n['path_bound_ms']:.5f} ms), "
+              f"{100 * n['wall_share']:.1f} % of the wall; {card}", flush=True)
+    ycb_sol = sols["runs"]["PickCubeYCB-v1"]
+    print(f"[solutions] PickCubeYCB-v1 B={K_SOL} on K2: success {ycb_sol['success']:.4f}, "
+          f"{ycb_sol['env_steps_per_s']:.1f} env steps/s; {card}", flush=True)
     lap("done")
     print(f"[done] every phase passed, {time.perf_counter() - t_start:.1f} s with the builds",
           flush=True)
@@ -2678,6 +2940,31 @@ def main():
               | paths["UnitreeH1Stand-v1"])
         | {"inputs": f"UnitreeH1Stand-v1, K={K_CHECK}, contact states; launches and path_*: its "
                      f"MPPI H=50, K=4096"},
+        entry("megakernel_step", k2_src, k2_tpu, bridge["PutEggplantInBasketScene-v1"]
+              | paths["PutEggplantInBasketScene-v1"])
+        | {"inputs": f"PutEggplantInBasketScene-v1, K={K_CHECK}, contact states (the WidowX, "
+                     f"20 sim steps a launch); launches and path_*: its MPPI H=50, K=4096; "
+                     f"scenes: the other bridge twins' kernel checks",
+           "scenes": scenes(bridge, ("PutSpoonOnTableClothInScene-v1",
+                                     "PutCarrotOnPlateInScene-v1",
+                                     "StackGreenCubeOnYellowCubeBakedTexInScene-v1"))},
+        entry("megakernel_step", k2_src, k2_tpu, two["TwoRobotStackCube-v1"]
+              | paths["TwoRobotStackCube-v1"])
+        | {"inputs": f"TwoRobotStackCube-v1, K={K_CHECK}, contact states (two Panda trees, nq "
+                     f"18); launches and path_*: its MPPI H=50, K=4096; scenes: the other "
+                     f"two-robot and PlaceSphere-v1 kernel checks; plain_route: "
+                     f"TwoRobotPickCubeYCB-v1, beyond NALL_MAX, env.step at B={K_SOL}",
+           "scenes": scenes(two, ("TwoRobotPushCube-v1", "TwoRobotPickCube-v1",
+                                  "TwoRobotFold-v1", "PlaceSphere-v1")),
+           "plain_route": two["TwoRobotPickCubeYCB-v1"]},
+        entry("megakernel_step", k2_src, k2_tpu, two["PickCubeYCB-v1"] | paths["PickCubeYCB-v1"])
+        | {"inputs": f"PickCubeYCB-v1, K={K_CHECK}, contact states (hull_hull); launches and "
+                     f"path_*: its MPPI H=50, K=4096; solution: its scripted solution at "
+                     f"B={K_SOL} on K2", "solution": ycb_sol},
+        entry("solve_psd", k1_src, k1_tpu, k1_widowx, k1_widowx["library_ms"])
+        | {"inputs": f"n=6, K={K_CHECK}: the WidowX's pd_ee_delta_pose IK systems of "
+                     f"PutCarrotOnPlateInScene-v1 reset states; launches: 5 env.step calls "
+                     f"under that mode at B={K_CHECK}"},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,3 @@
 from .base_agent import REGISTERED_AGENTS, BaseAgent, Keyframe, register_agent
 from .robots import (cartpole, fetch, panda, panda_stick, quadruped, trifinger,  # noqa: F401
-                     xarm)  # (populates the agent registry)
+                     widowx, xarm)  # (populates the agent registry)

@@ -131,6 +131,6 @@ class PandaWristCam(Panda):
     """``panda_wristcam`` (JAX ``agents/robots/panda.py:193-215``): the
     Panda's body, collisions and controllers. The JAX agent adds a depth
     camera on the ``panda_hand`` frame; the port's sensors are not written
-    yet (ROADMAP Queue A item 11), so this agent has none."""
+    yet (ROADMAP Queue A item 8), so this agent has none."""
 
     uid = "panda_wristcam"

@@ -16,17 +16,24 @@ what persists across episodes there, as ``reconfiguration_freq`` does);
 ``reset(options={"env_idx": ...})`` resets only the named envs, from their
 previous state, and keeps every other env's state bit for bit. As in the
 JAX package, the obs and info that a partial reset returns are those of
-the freshly reset states of all envs, the kept ones included. Not ported
-yet: the visual obs modes, the robots and control modes the agents lack,
-state-dict get/set and runtime drive-gain changes.
+the freshly reset states of all envs, the kept ones included. A tuple of
+robot uids (``DEFAULT_ROBOT``) builds a ``MultiAgent``: the robots merged
+into one forest (JAX ``:255-262``). The state surface: ``get_state_dict``,
+``set_state_dict`` (the reference's layout plus the controller's targets
+and the warm-start impulses, so a restore is exact), ``get_state``,
+``set_drive_properties`` (per-env drive gains, live until the next reset)
+and ``sample_action`` (``:728-835``). Not ported yet: the visual obs modes.
 
 The physics dispatch takes the CUDA mega-kernel (``physics/megakernel.py``)
 for every batch of a model it supports, through ``KernelStep``: the kernel
 computes the step, and derivatives (forward or reverse mode) come from the
 plain PyTorch step, as the JAX ``custom_jvp`` seam does
 (``envs/base_env.py:495-513``). CPU tensors take the plain step directly;
-``sim_backend="torch"`` asks for the plain step everywhere. On CUDA an
-unsupported model raises unless the caller asks for ``sim_backend="torch"``.
+``sim_backend="torch"`` asks for the plain step everywhere. A model the
+kernel's ``supports`` refuses runs on the plain step, as the JAX package
+runs it on its XLA engine; ``kernel_refusal`` names the cap it breaks
+(``megakernel.refusal``). A kernel that fails to build or launch raises:
+it never hands its batch to the plain step.
 """
 from __future__ import annotations
 
@@ -163,14 +170,21 @@ class BaseEnv:
         self.sim_backend = sim_backend
         self.sim_steps_per_control = self.SIM_FREQ // self.CONTROL_FREQ
 
-        self.agent: BaseAgent = REGISTERED_AGENTS[self.robot_uids](
-            device=self.device, control_mode=control_mode)
+        if isinstance(self.robot_uids, (tuple, list)):
+            from ..agents.multi_agent import MultiAgent
+
+            self.agent = MultiAgent(self.robot_uids, device=self.device,
+                                    control_mode=control_mode)
+        else:
+            self.agent: BaseAgent = REGISTERED_AGENTS[self.robot_uids](
+                device=self.device, control_mode=control_mode)
         self.control_mode = self.agent.control_mode
         builder = SceneSpecBuilder(self._sim_params())
         self._load_agent(builder)
         self._load_scene(builder)
         self.model: SceneModel = builder.build()
         self.kernel: Optional[megakernel.MegaKernel] = None
+        self.kernel_refusal: Optional[str] = None
         self._physics_step = self._build_physics_dispatch()
         self._force_query = make_force_query(self.model)
         self._post_build()
@@ -244,13 +258,13 @@ class BaseEnv:
 
     # -- functional core (batched) -----------------------------------------
     def _build_physics_dispatch(self):
-        """``(sim, cmd) -> sim`` advancing one control step."""
+        """``(sim, cmd) -> sim`` advancing one control step: the kernel
+        where ``supports`` takes the model, else the plain step (the JAX
+        package's XLA engine), the reason kept in ``kernel_refusal``."""
         n_steps = self.sim_steps_per_control
-        if self.sim_backend == "torch" or not megakernel.supports(self.model):
-            if self.sim_backend == "auto" and self.device.type == "cuda":
-                raise NotImplementedError(
-                    "the CUDA mega-kernel does not support this model; pass "
-                    "sim_backend='torch' to run the plain PyTorch step")
+        if self.sim_backend == "auto":
+            self.kernel_refusal = megakernel.refusal(self.model)
+        if self.sim_backend == "torch" or self.kernel_refusal is not None:
             step = make_step_fn(self.model)
             return lambda sim, cmd: step(sim, cmd, n_steps)
         self.kernel = megakernel.MegaKernel(self.model)
@@ -373,10 +387,105 @@ class BaseEnv:
             truncated = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
         return obs, reward, terminated, truncated, info
 
+    # -- state get/set (JAX ``:727-835``) ----------------------------------
+    def get_state_dict(self) -> Dict:
+        """``{"actors": {name: (K, 13)}, "articulations": {uids: (K, 13 +
+        2 nq)}, "controller": {"target_qpos"}, "contacts": {"lam",
+        "lam_t"}}``: the reference's layout (pose, velocity; the robot's
+        root pose, zero root velocity, qpos, qvel), plus the controller's
+        targets and the warm-started contact impulses, with which
+        ``set_state_dict`` restores the state exactly."""
+        s, K = self._state.sim, self.num_envs
+        zeros6 = s.qpos.new_zeros(K, 6)
+        actors = {name: torch.cat([s.free_pose[:, i], s.free_vel[:, i]], dim=-1)
+                  for name, i in self.model.free_index.items()}
+        actors.update({name: torch.cat([s.kin_pose[:, i], zeros6], dim=-1)
+                       for name, i in self.model.kin_index.items()})
+        arts = {}
+        if self.model.nq > 0:
+            root = const(self.model, "robot_base_pose", self.model.robot_base_pose,
+                         self.device).expand(K, 7)
+            arts[self.robot_uids] = torch.cat([root, zeros6, s.qpos, s.qvel], dim=-1)
+        return dict(actors=actors, articulations=arts,
+                    controller=dict(target_qpos=self._state.cmd.target_qpos),
+                    contacts=dict(lam=s.contact_lam, lam_t=s.contact_lam_t))
+
+    def set_state_dict(self, sd: Dict):
+        """Restore a ``get_state_dict`` payload (one without ``contacts``
+        starts the warm start from zero impulses)."""
+        s, dev = self._state.sim, self.device
+        free_pose, free_vel, kin_pose = s.free_pose.clone(), s.free_vel.clone(), s.kin_pose.clone()
+        for name, val in sd.get("actors", {}).items():
+            val = torch.as_tensor(val, device=dev)
+            if name in self.model.free_index:
+                i = self.model.free_index[name]
+                free_pose[:, i] = val[:, :7]
+                free_vel[:, i] = val[:, 7:13]
+            elif name in self.model.kin_index:
+                kin_pose[:, self.model.kin_index[name]] = val[:, :7]
+        qpos, qvel, nq = s.qpos, s.qvel, self.model.nq
+        for val in sd.get("articulations", {}).values():
+            val = torch.as_tensor(val, device=dev)
+            qpos, qvel = val[:, 13:13 + nq], val[:, 13 + nq:13 + 2 * nq]
+        if "contacts" in sd:
+            lam = torch.as_tensor(sd["contacts"]["lam"], device=dev)
+            lam_t = torch.as_tensor(sd["contacts"]["lam_t"], device=dev)
+        else:
+            lam, lam_t = torch.zeros_like(s.contact_lam), torch.zeros_like(s.contact_lam_t)
+        sim = s.replace(free_pose=free_pose, free_vel=free_vel, kin_pose=kin_pose, qpos=qpos,
+                        qvel=qvel, contact_lam=lam, contact_lam_t=lam_t)
+        cmd = self._state.cmd
+        if "controller" in sd:
+            cmd = cmd.replace(target_qpos=torch.as_tensor(sd["controller"]["target_qpos"],
+                                                          device=dev))
+        self._state = self._state.replace(sim=sim, cmd=cmd)
+
+    def get_state(self) -> torch.Tensor:
+        return flatten_state_dict(self.get_state_dict())
+
+    def set_drive_properties(self, stiffness=None, damping=None, force_limit=None,
+                             joint_names=None, env_idx=None):
+        """Change the PD drive gains of ``joint_names`` (default: every
+        joint) in the envs ``env_idx`` (default: all) until the next reset,
+        which restores the controller's gains. A command that carries no
+        gains of its own (the model's) is given them first."""
+        cmd, model, dev = self._state.cmd, self.model, self.device
+        names = list(model.robot.joint_names)
+        jidx = (np.arange(model.nq) if joint_names is None
+                else np.asarray([names.index(n) for n in joint_names]))
+        eidx = np.arange(self.num_envs) if env_idx is None else np.asarray(env_idx)
+        rows = torch.as_tensor(eidx, device=dev)[:, None]
+        cols = torch.as_tensor(jidx, device=dev)[None, :]
+
+        def upd(cur, default, val):
+            if cur is None:
+                cur = torch.as_tensor(default, dtype=torch.float32,
+                                      device=dev).expand(self.num_envs, -1)
+            if val is None:
+                return cur
+            cur = cur.clone()
+            cur[rows, cols] = torch.as_tensor(val, dtype=torch.float32,
+                                              device=dev).expand(len(eidx), len(jidx))
+            return cur
+
+        self._state = self._state.replace(cmd=cmd.replace(
+            kp=upd(cmd.kp, model.drive_kp, stiffness),
+            kd=upd(cmd.kd, model.drive_kd, damping),
+            force_limit=upd(cmd.force_limit, model.drive_force_limit, force_limit)))
+
+    def sample_action(self, gen: torch.Generator) -> torch.Tensor:
+        """(K, A) actions uniform in the action space, drawn with ``gen``
+        (the JAX env's takes a numpy ``RandomState``)."""
+        lo, hi = self.single_action_space
+        return self._uniform(gen, (self.num_envs, self.action_dim), list(lo), list(hi))
+
 
 def flatten_state_dict(d: Dict) -> torch.Tensor:
     """Insertion-ordered flatten of a nested dict of (K, ...) tensors into
-    (K, n); per-env scalars (K,) become one column."""
+    (K, n); per-env scalars (K,) become one column, and a leaf of more
+    dimensions its rows (the warm-start impulses (K, P, 3) of
+    ``get_state``: the JAX ``flatten_state_dict`` cannot concatenate them,
+    so JAX ``get_state`` raises on a scene with contact points)."""
     leaves = []
 
     def rec(x):
@@ -385,7 +494,7 @@ def flatten_state_dict(d: Dict) -> torch.Tensor:
                 rec(x[k])
         else:
             a = x.to(torch.float32) if x.dtype == torch.bool else x
-            leaves.append(a[:, None] if a.ndim == 1 else a)
+            leaves.append(a.reshape(a.shape[0], -1))
 
     rec(d)
     return torch.cat(leaves, dim=-1)

@@ -169,8 +169,9 @@ class FoldSuitcaseEnv(BaseEnv):
         y[:, 1] = -1.0
         x = torch.linalg.cross(y, z, dim=-1)
         q_goal = _quat_from_matrix(torch.stack([x, y, z], dim=-1))
-        qpos = pose_ik(self, sim.qpos, p_goal + 0.01 * n, q_goal)
-        qpos[:, 7:9] = 0.0
+        ee_link, arm, grip, _ = self._pressing_arm()
+        qpos = pose_ik(self, sim.qpos, p_goal + 0.01 * n, q_goal, joints=arm, ee_link=ee_link)
+        qpos[:, grip] = 0.0
         # the lid turned about the hinge until the deepest finger corner is
         # 0-1.5 mm inside the inner face
         depth = self._uniform(gen, (K,), 0.0, 1.5e-3)
@@ -180,24 +181,31 @@ class FoldSuitcaseEnv(BaseEnv):
         qpos = torch.where(press[:, None], qpos, sim.qpos)
         qpos[:, i] = q_lid
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
-        qvel[:, 7:9] = 0.0
+        qvel[:, grip] = 0.0
         qvel[:, i] = torch.where(press, torch.zeros_like(q),
                                  self._uniform(gen, (K,), 0.0, 0.3))
         sim = sim.replace(qpos=qpos, qvel=qvel)
-        target = pose_ik(self, qpos, p_goal + 0.008 * n, q_goal, iters=10)
+        target = pose_ik(self, qpos, p_goal + 0.008 * n, q_goal, joints=arm, iters=10,
+                         ee_link=ee_link)
         target = torch.where(press[:, None], target, qpos)
-        target[:, 7:9] = 0.0
+        target[:, grip] = 0.0
         cmd = self.agent.controller.reset(qpos).replace(target_qpos=target)
         sim = make_step_fn(self.model)(sim, cmd, self.sim_steps_per_control)
         return state.replace(sim=sim, cmd=cmd)
+
+    def _pressing_arm(self):
+        """The arm that presses the lid in ``contact_state``: its TCP frame,
+        arm joints, gripper joints and finger geoms."""
+        return (self.agent.ee_link_name, range(7), slice(7, 9),
+                ("robot:panda_leftfinger", "robot:panda_rightfinger"))
 
     def _lid_angle_for_depth(self, qpos, depth, q0):
         """The lid angle near ``q0`` at which the finger corner deepest
         beyond the lid's inner face lies ``depth`` inside it (Newton steps
         on the corners' signed distances)."""
         model = self.model
-        fingers = [g for g, gs in enumerate(model.geoms)
-                   if gs.name in ("robot:panda_leftfinger", "robot:panda_rightfinger")]
+        names = self._pressing_arm()[3]
+        fingers = [g for g, gs in enumerate(model.geoms) if gs.name in names]
         corners = box_corners(model, qpos, fingers)  # (K, C, 3)
         rel = corners - torch.as_tensor(self._hinge, device=qpos.device)
         a, c = rel[..., 0], rel[..., 2]

@@ -24,7 +24,7 @@ from ..scene_builders import TABLE_HEIGHT, TableSceneBuilder
 
 
 def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
-               gen: torch.Generator, dz=None, tool=(0.0, 1.0, 0.0, 0.0)) -> torch.Tensor:
+               gen: torch.Generator, dz=None, tool=(0.0, 1.0, 0.0, 0.0), **ik) -> torch.Tensor:
     """``qpos`` with the arm moved so the TCP grasps the object at pose
     ``cube`` (K, 7) from above: damped least-squares IK puts the TCP on the
     object's vertical axis, pointing down, 2-12 mm below its centre (drawn
@@ -32,7 +32,8 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
     fingers closing along the object's y axis, or its x axis where the yaw
     is folded by an odd number of quarter turns (``_closing_half``).
     ``tool``: the TCP's orientation before the yaw (default: its +z turned
-    to world -z, pointing down). The gripper joints are left as they are."""
+    to world -z, pointing down). The gripper joints are left as they are;
+    ``ik``: ``pose_ik``'s ``joints`` and ``ee_link`` (one arm of several)."""
     dev = env.device
     K = qpos.shape[0]
     # the object's yaw (reset objects are yaw-only) folded into
@@ -46,25 +47,27 @@ def grasp_qpos(env, qpos: torch.Tensor, cube: torch.Tensor,
         dz = -0.012 + 0.01 * torch.rand((K,), generator=gen, device=dev)
     p_goal = cube[:, :3] + torch.stack(
         [torch.zeros(K, device=dev), torch.zeros(K, device=dev), dz], dim=-1)
-    return pose_ik(env, qpos, p_goal, q_goal)
+    return pose_ik(env, qpos, p_goal, q_goal, **ik)
 
 
 def pose_ik(env, qpos: torch.Tensor, p_goal: torch.Tensor, q_goal: torch.Tensor,
-            joints=range(7), iters: int = 30) -> torch.Tensor:
+            joints=range(7), iters: int = 30, ee_link=None) -> torch.Tensor:
     """``qpos`` with the ``joints`` moved (damped least squares, steps of
-    at most 0.2 rad, within the joint limits) so that the TCP reaches the
-    world pose ``(p_goal (K, 3), q_goal (K, 4))``; 30 steps bring a
-    reachable goal within ~1e-6 m."""
+    at most 0.2 rad, within the joint limits) so that the TCP (the frame
+    ``ee_link``, by default the agent's) reaches the world pose
+    ``(p_goal (K, 3), q_goal (K, 4))``; 30 steps bring a reachable goal
+    within ~1e-6 m."""
     model, spec, dev = env.model, env.model.robot, env.device
     base = const(model, "robot_base_pose", model.robot_base_pose, dev)
-    tcp = spec.frame_of(env.agent.ee_link_name)[0]
+    ee_link = env.agent.ee_link_name if ee_link is None else ee_link
+    tcp = spec.frame_of(ee_link)[0]
     arm = np.asarray(joints)
     idx = torch.as_tensor(arm, device=dev)
     qlim = torch.as_tensor(model.robot_qlim, device=dev)
     qpos = qpos.clone()
     for _ in range(iters):
         body_pos, body_quat, axis_w = chain.fk(spec, base, qpos)
-        p, q = chain.frame_pose(spec, base, body_pos, body_quat, env.agent.ee_link_name)
+        p, q = chain.frame_pose(spec, base, body_pos, body_quat, ee_link)
         q_err = quat_mul(q_goal, quat_conjugate(q))
         w_err = 2.0 * torch.sign(q_err[:, :1]) * q_err[:, 1:]
         err = torch.cat([w_err, p_goal - p], dim=-1)

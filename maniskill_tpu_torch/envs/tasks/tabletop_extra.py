@@ -12,8 +12,12 @@ hit, 30 on success) with its normalized form. ``PullCubeToolEnv``
 box and a hook box on one free body) to pull it in with; the same reset
 ranges, success (the cube's xy within 0.6 m of the robot's base), state obs
 and the staged dense reward. ``EmptyEnv`` (``:24``): the robot on the
-table, no task. The JAX envs' base cameras wait for the sensors;
-PlaceSphere-v1 of the same JAX module is not ported yet.
+table, no task. ``PlaceSphereEnv`` (``:167-264``): drop a 2 cm sphere into
+a shallow bin of five boxes on one free body; the same reset draw (the bin
+at xy in [0, 0.1] x [-0.1, 0.1], the sphere in [-0.12, -0.05] x [-0.1,
+0.1]), success (the sphere centred in the bin, on its bottom, the arm
+static), state obs and dense reward. The JAX envs' base cameras wait for
+the sensors (PlaceSphere's is kept as data: ``BASE_CAMERA``).
 """
 from __future__ import annotations
 
@@ -195,6 +199,110 @@ class EmptyEnv(BaseEnv):
 
     def _get_obs_extra(self, state: EnvState, ctx: TaskContext, info):
         return dict(tcp_pose=ctx.tcp_pose.raw)
+
+
+@register_env("PlaceSphere-v1", max_episode_steps=50)
+class PlaceSphereEnv(BaseEnv):
+    DEFAULT_ROBOT = "panda"
+    # (uid, eye, target, width, height, fov, near, far) of the JAX env's camera
+    BASE_CAMERA = ("base_camera", (0.3, 0, 0.6), (-0.1, 0, 0.1), 128, 128, np.pi / 2, 0.01, 100)
+
+    radius = 0.02
+    inner_half = 0.02
+    wall = 0.0025
+
+    def _load_agent(self, builder: SceneSpecBuilder):
+        self.table_scene = TableSceneBuilder(self)
+        pose, qpos = self.table_scene.robot_pose_and_qpos(self.robot_uids)
+        self.agent.install(builder, pose, init_qpos=qpos)
+
+    def _load_scene(self, builder: SceneSpecBuilder):
+        self.table_scene.build(builder)
+        r, ih, w = self.radius, self.inner_half, self.wall
+        m = 1000.0 * (4.0 / 3.0) * np.pi * r ** 3
+        self.sphere = builder.add_free_body("sphere", m, (2.0 / 5.0) * m * r * r * np.eye(3),
+                                            [sphere_geom(r, friction=0.8)])
+        # the bin: a bottom and four edge walls on one free body
+        oh = ih + 2 * w  # its outer half extent
+        geoms = [box_geom([oh, oh, w], offset_p=[0, 0, w]),
+                 box_geom([w, oh, w], offset_p=[-(ih + w), 0, 3 * w]),
+                 box_geom([w, oh, w], offset_p=[(ih + w), 0, 3 * w]),
+                 box_geom([oh, w, w], offset_p=[0, -(ih + w), 3 * w]),
+                 box_geom([oh, w, w], offset_p=[0, (ih + w), 3 * w])]
+        bm = 0.2
+        self.bin = builder.add_free_body("bin", bm, bm * 1e-4 * np.eye(3), geoms)
+
+    def _initialize_episode(self, state: EnvState, gen: torch.Generator) -> EnvState:
+        K, dev = state.sim.qpos.shape[0], self.device
+        bin_xy = self._uniform(gen, (K, 2), [0.0, -0.1], [0.1, 0.1])
+        sph_xy = self._uniform(gen, (K, 2), [-0.12, -0.1], [-0.05, 0.1])
+        free_pose = state.sim.free_pose.clone()
+        free_pose[:, self.bin] = torch.cat(
+            [bin_xy, torch.tensor([0.0, 1.0, 0, 0, 0], device=dev).expand(K, 5)], -1)
+        free_pose[:, self.sphere] = torch.cat(
+            [sph_xy, torch.tensor([self.radius, 1.0, 0, 0, 0], device=dev).expand(K, 5)], -1)
+        return state.replace(sim=state.sim.replace(
+            free_pose=free_pose, free_vel=torch.zeros_like(state.sim.free_vel)))
+
+    def contact_state(self, state: EnvState, gen: torch.Generator) -> EnvState:
+        """``state`` moved into contact, for checks of the physics step: in
+        three envs of four the fingers grasp the sphere on the table
+        (``grasp_qpos``, closed 0-1 mm into it), in the fourth the sphere
+        rests in the bin, 0-1 mm into its bottom. Joint velocities are
+        random, the arm holds its pose and the gripper shuts; one control
+        step of the plain physics step loads the warm-start impulses.
+        Fingers, table and bin bottom against the sphere are ``sphere_box``
+        points."""
+        dev, sim = self.device, state.sim
+        K = sim.qpos.shape[0]
+        free_pose = sim.free_pose.clone()
+        in_bin = torch.arange(K, device=dev) % 4 == 3
+        sink = self._uniform(gen, (K,), 0.0, 1e-3)
+        binned = torch.cat([free_pose[:, self.bin, :2],
+                            (free_pose[:, self.bin, 2] + 2 * self.wall + self.radius
+                             - sink)[:, None], free_pose[:, self.sphere, 3:]], -1)
+        free_pose[:, self.sphere] = torch.where(in_bin[:, None], binned,
+                                                free_pose[:, self.sphere])
+        qpos = grasp_qpos(self, sim.qpos, free_pose[:, self.sphere], gen,
+                          dz=torch.zeros(K, device=dev))
+        r = self.radius
+        qpos[:, 7:9] = self._uniform(gen, (K, 1), r - 0.001, r)
+        qpos = torch.where(in_bin[:, None], sim.qpos, qpos)
+        qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
+        sim = sim.replace(qpos=qpos, qvel=qvel, free_pose=free_pose,
+                          free_vel=torch.zeros_like(sim.free_vel))
+        target = qpos.clone()
+        target[:, 7:9] = 0.0
+        cmd = self.agent.controller.reset(qpos).replace(target_qpos=target)
+        sim = make_step_fn(self.model)(sim, cmd, self.sim_steps_per_control)
+        return state.replace(sim=sim, cmd=cmd)
+
+    def evaluate(self, state: EnvState, ctx: TaskContext):
+        sph = ctx.actor_pose("sphere").p
+        b = ctx.actor_pose("bin").p
+        in_xy = torch.linalg.norm(sph[:, :2] - b[:, :2], dim=-1) < self.inner_half
+        on_bottom = torch.abs(sph[:, 2] - (b[:, 2] + 2 * self.wall + self.radius)) < 0.005
+        static = torch.amax(torch.abs(state.sim.qvel[:, :7]), dim=-1) < 0.2
+        return dict(success=in_xy & on_bottom & static)
+
+    def _get_obs_extra(self, state, ctx, info):
+        obs = dict(tcp_pose=ctx.tcp_pose.raw)
+        if self.obs_mode in ("state", "state_dict"):
+            obs.update(sphere_pose=ctx.actor_pose("sphere").raw,
+                       bin_pos=ctx.actor_pose("bin").p)
+        return obs
+
+    def compute_dense_reward(self, state, action, info, ctx: TaskContext):
+        sph = ctx.actor_pose("sphere").p
+        b = ctx.actor_pose("bin").p
+        reach = 1.0 - torch.tanh(5.0 * torch.linalg.norm(sph - ctx.tcp_pose.p, dim=-1))
+        target = b + torch.tensor([0.0, 0.0, 2 * self.wall + self.radius], device=sph.device)
+        place = 1.0 - torch.tanh(5.0 * torch.linalg.norm(sph - target, dim=-1))
+        reward = reach + 2.0 * place
+        return torch.where(info["success"], torch.full_like(reward, 5.0), reward)
+
+    def compute_normalized_dense_reward(self, state, action, info, ctx):
+        return self.compute_dense_reward(state, action, info, ctx) / 5.0
 
 
 @register_env("PullCubeTool-v1", max_episode_steps=100)

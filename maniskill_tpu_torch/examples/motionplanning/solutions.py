@@ -10,7 +10,7 @@ the device (the CUDA mega-kernel, with the IK step's solve kernel, on a
 card). Ported: the solutions of PickCube, PushCube, PullCube, StackCube,
 RollBall, PickSingleHull, LiftPegUpright, PegInsertionSide, PlugCharger,
 PullCubeTool, DrawTriangle, DrawSVG (the ``panda_stick``: 3 actions under
-``pd_ee_delta_pos``) and FoldSuitcase. PickCubeYCB waits for its task.
+``pd_ee_delta_pos``), FoldSuitcase and PickCubeYCB.
 
 ``recorder``: an object with the env's ``step`` (a trajectory recorder
 wrapping the env); ``None`` steps the env itself.
@@ -742,6 +742,7 @@ SOLUTIONS = {
     "StackCube-v1": solve_stack_cube,
     "RollBall-v1": solve_roll_ball,
     "PickSingleHull-v1": solve_pick_object,
+    "PickCubeYCB-v1": solve_pick_object,
     "LiftPegUpright-v1": solve_lift_peg_upright,
     "PegInsertionSide-v1": solve_peg_insertion_side,
     "PlugCharger-v1": solve_plug_charger,

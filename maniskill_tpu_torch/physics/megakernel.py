@@ -108,21 +108,38 @@ def supports(model: SceneModel) -> bool:
     program. This kernel loops over its point tables at run time, so its
     code size does not grow with the scene, and the port keeps no such
     budget: a scene's hull work shows in its time, not in whether it
-    runs."""
+    runs. ``refusal`` names what a refused model breaks."""
+    return refusal(model) is None
+
+
+def refusal(model: SceneModel):
+    """``None`` where ``supports`` takes the model, else the first of the
+    kernel's conditions it breaks, in words: the contact mode, a missing
+    robot, a pair function the kernel lacks, the hull tables' padded
+    sizes, a compile-time cap (``NB_MAX``, ``NALL_MAX``, ``G_MAX``,
+    ``F_MAX``: "n_all 36 > NALL_MAX 32") or a block of slices beyond the
+    card's shared memory."""
     caps = _caps()
-    if model.params.contact_mode != "velocity" or model.robot is None:
-        return False
+    if model.params.contact_mode != "velocity":
+        return f"contact mode {model.params.contact_mode!r} (the kernel's is 'velocity')"
+    if model.robot is None:
+        return "no robot"
     for (fn, *_rest) in model.pair_groups:
         if fn.__name__ not in _FNS:
-            return False
+            return f"pair function {fn.__name__} not in the kernel"
     if (model.hull_verts0.shape[1:] != (caps["HULL_P"], 3)
             or model.hull_faces0.shape[1:] != (caps["HULL_F"], 4)):
-        return False
-    n_all = model.nq + 6 * model.n_free
-    if not (model.nq <= caps["NB_MAX"] and n_all <= caps["NALL_MAX"]
-            and len(model.geoms) <= caps["G_MAX"] and model.n_free <= caps["F_MAX"]):
-        return False
-    return 4 * caps["WARPS"] * _Plan(model).slice_floats() <= SMEM_BLOCK_MAX
+        return "hull tables not of the kernel's padded sizes"
+    for name, n, cap in (("nq", model.nq, "NB_MAX"),
+                         ("n_all", model.nq + 6 * model.n_free, "NALL_MAX"),
+                         ("G", len(model.geoms), "G_MAX"), ("F", model.n_free, "F_MAX")):
+        if n > caps[cap]:
+            return f"{name} {n} > {cap} {caps[cap]}"
+    block = 4 * caps["WARPS"] * _Plan(model).slice_floats()
+    if block > SMEM_BLOCK_MAX:
+        return (f"slice {block // caps['WARPS']} B: a block of {caps['WARPS']} "
+                f"{block} B > SMEM_BLOCK_MAX {SMEM_BLOCK_MAX} B")
+    return None
 
 
 def _pad4(n: int) -> int:

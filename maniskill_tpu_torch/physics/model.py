@@ -356,6 +356,9 @@ class SceneSpecBuilder:
         # articulated objects: (name, spec, pose, base_geoms, link_geoms,
         # init_qpos)
         self._articulations: list = []
+        # a robot that is itself a forest of several robots
+        # (``agents/multi_agent.py``): the tree of each robot body
+        self._forest_tree_id: Optional[np.ndarray] = None
         # per-env convex hull tables (one slot per HULL geom)
         self.hull_verts: List[np.ndarray] = []
         self.hull_faces: List[np.ndarray] = []
@@ -555,9 +558,15 @@ class SceneSpecBuilder:
         if self._articulations:
             forest = self._merge_articulations(geoms, collision_enabled)
         tree_id = forest["tree_id"]
+        robot_tree = self._forest_tree_id
 
         def tree_of(body: int) -> int:
-            return int(tree_id[body]) if tree_id is not None and body >= 0 else 0
+            if body < 0:
+                return 0
+            t = int(tree_id[body]) if tree_id is not None else 0
+            if t == 0 and robot_tree is not None and body < len(robot_tree):
+                return -1 - int(robot_tree[body])  # a robot of a multi-robot forest
+            return t
 
         fixed = (BodyKind.STATIC, BodyKind.KINEMATIC)
         pairs = []

@@ -45,6 +45,8 @@ import maniskill_tpu_torch.envs.tasks.assembling_kits, maniskill_tpu_torch.envs.
 import maniskill_tpu_torch.agents.robots.trifinger, maniskill_tpu_torch.agents.robots.quadruped
 import maniskill_tpu_torch.envs.tasks.rotate_cube, maniskill_tpu_torch.envs.tasks.rotate_valve
 import maniskill_tpu_torch.envs.tasks.quadruped, maniskill_tpu_torch.envs.tasks.humanoid_stand
+import maniskill_tpu_torch.agents.robots.widowx, maniskill_tpu_torch.agents.multi_agent
+import maniskill_tpu_torch.envs.tasks.bridge, maniskill_tpu_torch.envs.tasks.two_robot
 maniskill_tpu_torch.utils.building.ycb_or_procedural_library()
 maniskill_tpu_torch.make("RotateSingleObjectInHandLevel2-v1", num_envs=2, device="cpu").reset(seed=0)
 maniskill_tpu_torch.make("OpenCabinetDrawer-v1", num_envs=2, device="cpu").reset(seed=0)
@@ -56,10 +58,17 @@ _e.reset(seed=0)
 _e.step(numpy.zeros(7, "float32"))
 for _id in ("PushT-v1", "DrawSVG-v1", "FrankaMoveBenchmark-v1", "CustomEnv-v1",
             "FMBAssembly1Easy-v1", "TriFingerRotateCubeLevel4-v1", "RotateCube-v1", "RotateValveLevel3-v1",
-            "AnymalC-Reach-v1", "UnitreeH1Stand-v1"):
+            "AnymalC-Reach-v1", "UnitreeH1Stand-v1", "PutEggplantInBasketScene-v1",
+            "TwoRobotStackCube-v1", "TwoRobotPickCubeYCB-v1", "PlaceSphere-v1", "PickCubeYCB-v1"):
     _e = maniskill_tpu_torch.make(_id, num_envs=2, device="cpu")
     _e.reset(seed=0)
     _e.reset(options={"env_idx": [1]})
+_e.set_state_dict(_e.get_state_dict())
+_e.get_state()
+_e = maniskill_tpu_torch.make("PutCarrotOnPlateInScene-v1", num_envs=2, device="cpu",
+                              control_mode="pd_ee_delta_pose")
+_e.reset(seed=0)
+_e.step(_e.sample_action(__import__("torch").Generator()))
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "maniskill_tpu" or m.startswith("maniskill_tpu."))
@@ -90,6 +99,10 @@ def test_make_without_device_raises_without_cuda(monkeypatch):
                  "TableTopFreeDraw-v1", "DrawTriangle-v1", "TriFingerRotateCubeLevel1-v1",
                  "RotateCube-v1", "RotateValveDClaw-v1", "RotateValveLevel2-v1",
                  "AnymalC-Reach-v1", "AnymalC-Spin-v1", "UnitreeGo2-Reach-v1",
-                 "UnitreeH1Stand-v1"):
+                 "UnitreeH1Stand-v1", "PutCarrotOnPlateInScene-v1",
+                 "PutSpoonOnTableClothInScene-v1", "StackGreenCubeOnYellowCubeBakedTexInScene-v1",
+                 "PutEggplantInBasketScene-v1", "TwoRobotPushCube-v1", "TwoRobotPickCube-v1",
+                 "TwoRobotStackCube-v1", "TwoRobotFold-v1", "TwoRobotPickCubeYCB-v1",
+                 "PlaceSphere-v1", "PickCubeYCB-v1"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mtt.make(task, num_envs=1)

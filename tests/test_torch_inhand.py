@@ -65,7 +65,7 @@ from maniskill_tpu_torch.math.rotations import quat_mul
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hull_stack, hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, plain64, np_tree as _np,
+from torch_parity import (fast_trace_metadata, make_jax_env, plain64, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -334,7 +334,7 @@ def _jax(task):
     process, shared by every case that needs them."""
     env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
-    return env, shared_jit(jax.vmap(env._step_one))
+    return env, env._jit_step
 
 
 @functools.lru_cache(maxsize=None)
@@ -606,12 +606,12 @@ def test_hull_stack_matches_jax():
     jcmd = _to_jax(jax.tree.map(lambda x: jnp.broadcast_to(x, (K,) + x.shape),
                                 jmodel.DriveCmd(target_qpos=jnp.zeros(9), target_qvel=jnp.zeros(9),
                                                 qf=jnp.zeros(9))), cmd)
-    step = jeng.make_step_fn(jm)
-
-    def five(s, c):  # one compiled sim step, looped: a smaller program to compile
-        return jax.lax.fori_loop(0, 5, lambda _i, x: step(x, c), s)
-
-    jnew = jax.jit(jax.vmap(five))(jstate, jcmd)
+    # one compiled sim step called five times: XLA compiles a loop of sim
+    # steps about three times longer than one on the CPU
+    one = jax.jit(jax.vmap(jeng.make_step_fn(jm)))
+    jnew = jstate
+    for _ in range(5):
+        jnew = one(jnew, jcmd)
     got, ref = convert.to_numpy(new), _np(jnew)
     for name, tol in TOL.items():
         np.testing.assert_allclose(got[name], ref[name], atol=tol, err_msg=name)

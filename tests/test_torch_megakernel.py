@@ -1027,26 +1027,33 @@ _IDS = ["AnymalC-Reach-v1", "AnymalC-Spin-v1", "AssemblingKits-v1", "CustomEnv-v
         "LiftPegUpright-v1", "MS-AntRun-v1", "MS-AntWalk-v1", "MS-CartpoleBalance-v1",
         "MS-CartpoleSwingUp-v1", "MS-HopperHop-v1", "MS-HopperStand-v1", "MS-HumanoidRun-v1",
         "MS-HumanoidStand-v1", "MS-HumanoidWalk-v1", "OpenCabinetDoor-v1", "OpenCabinetDrawer-v1",
-        "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1", "PickCube-v1", "PickSingleHull-v1",
-        "PickSingleObject-v1", "PickSingleYCB-v1", "PlugCharger-v1", "PokeCube-v1", "PullCube-v1",
-        "PullCubeTool-v1", "PushCube-v1", "PushCubeKitchen-v1", "PushT-v1", "RollBall-v1",
+        "OpenCabinetDrawerModels-v1", "PegInsertionSide-v1", "PickCube-v1", "PickCubeYCB-v1",
+        "PickSingleHull-v1", "PickSingleObject-v1", "PickSingleYCB-v1", "PlaceSphere-v1",
+        "PlugCharger-v1", "PokeCube-v1", "PullCube-v1", "PullCubeTool-v1", "PushCube-v1",
+        "PushCubeKitchen-v1", "PushT-v1", "PutCarrotOnPlateInScene-v1",
+        "PutEggplantInBasketScene-v1", "PutSpoonOnTableClothInScene-v1", "RollBall-v1",
         "RotateCube-v1", "RotateCubeInHandAllegro-v1", "RotateSingleObjectInHandLevel0-v1",
         "RotateSingleObjectInHandLevel1-v1", "RotateSingleObjectInHandLevel2-v1",
         "RotateSingleObjectInHandLevel3-v1", "RotateValveDClaw-v1", "RotateValveLevel0-v1",
         "RotateValveLevel1-v1", "RotateValveLevel2-v1", "RotateValveLevel3-v1",
-        "RotateValveLevel4-v1", "StackCube-v1", "TableTopFreeDraw-v1",
-        "TriFingerRotateCubeLevel0-v1", "TriFingerRotateCubeLevel1-v1",
+        "RotateValveLevel4-v1", "StackCube-v1", "StackGreenCubeOnYellowCubeBakedTexInScene-v1",
+        "TableTopFreeDraw-v1", "TriFingerRotateCubeLevel0-v1", "TriFingerRotateCubeLevel1-v1",
         "TriFingerRotateCubeLevel2-v1", "TriFingerRotateCubeLevel3-v1",
-        "TriFingerRotateCubeLevel4-v1", "TurnFaucet-v1", "UnitreeGo2-Reach-v1",
-        "UnitreeH1Stand-v1"]
+        "TriFingerRotateCubeLevel4-v1", "TurnFaucet-v1", "TwoRobotFold-v1", "TwoRobotPickCube-v1",
+        "TwoRobotPickCubeYCB-v1", "TwoRobotPushCube-v1", "TwoRobotStackCube-v1",
+        "UnitreeGo2-Reach-v1", "UnitreeH1Stand-v1"]
+# the registered ids beyond the kernel's caps, with the cap each breaks
+_REFUSED = {"TwoRobotPickCubeYCB-v1": "n_all 36 > NALL_MAX 32"}
 
 
 @pytest.mark.parametrize("task", _IDS + ["hull stack"])
 def test_every_ported_scene_fits_the_kernel(task):
-    """Every registered id and the hull stack are within the kernel's caps
-    (a body, dof and geom a lane), a block's slices (WARPS envs) fit its
-    shared memory, and ``supports`` takes them, so the env dispatches to
-    the kernel and never quietly to the plain step."""
+    """Every registered id within the kernel's caps, and the hull stack,
+    is within them (a body, dof and geom a lane), a block's slices (WARPS
+    envs) fit its shared memory, and ``supports`` takes them, so the env
+    dispatches to the kernel and never quietly to the plain step. An id
+    beyond a cap (``_REFUSED``: TwoRobotPickCubeYCB-v1, n_all 36) is refused
+    with that cap named, and its env takes the plain step and says why."""
     from maniskill_tpu_torch.envs.registration import REGISTERED_ENVS
 
     assert sorted(REGISTERED_ENVS) == _IDS
@@ -1057,7 +1064,11 @@ def test_every_ported_scene_fits_the_kernel(task):
     else:
         e = mtt.make(task, num_envs=1, device="cpu")
         model = e.model
-        assert isinstance(e.kernel, megakernel.MegaKernel)
+        if task in _REFUSED:
+            assert megakernel.refusal(model) == e.kernel_refusal == _REFUSED[task]
+            assert not megakernel.supports(model) and e.kernel is None
+            return
+        assert isinstance(e.kernel, megakernel.MegaKernel) and e.kernel_refusal is None
     caps = megakernel._caps()
     plan = megakernel._Plan(model)
     assert megakernel.supports(model)
@@ -1067,10 +1078,29 @@ def test_every_ported_scene_fits_the_kernel(task):
 
 def test_supports_refuses_a_slice_beyond_shared_memory(env, monkeypatch):
     """A model whose block of slices cannot fit the card's shared memory is
-    refused (and so never launched)."""
+    refused (and so never launched), and ``refusal`` says so."""
     assert megakernel.supports(env.model)
     block = 4 * megakernel._caps()["WARPS"] * megakernel._Plan(env.model).slice_floats()
     monkeypatch.setattr(megakernel, "SMEM_BLOCK_MAX", block - 4)
+    assert not megakernel.supports(env.model)
+    assert megakernel.refusal(env.model) == (
+        f"slice {block // megakernel._caps()['WARPS']} B: a block of "
+        f"{megakernel._caps()['WARPS']} {block} B > SMEM_BLOCK_MAX {block - 4} B")
+
+
+@pytest.mark.parametrize("cap, name", [("NB_MAX", "nq"), ("NALL_MAX", "n_all"), ("G_MAX", "G"),
+                                       ("F_MAX", "F")])
+def test_refusal_names_the_cap_a_scene_breaks(env, monkeypatch, cap, name):
+    """``refusal`` names the first compile-time cap PickCube's scene (nq 9,
+    n_all 15, G 8, F 1) breaks once that cap is lowered below it, in the
+    order nq, n_all, G, F, as ``supports`` refuses it; with the caps as
+    built it names none."""
+    assert megakernel.refusal(env.model) is None
+    caps = dict(megakernel._caps())
+    value = {"nq": 9, "n_all": 15, "G": 8, "F": 1}[name]
+    caps[cap] = value - 1
+    monkeypatch.setattr(megakernel, "_caps", lambda: caps)
+    assert megakernel.refusal(env.model) == f"{name} {value} > {cap} {value - 1}"
     assert not megakernel.supports(env.model)
 
 
@@ -1542,3 +1572,50 @@ def test_legged_kernel_matches_plain(task, states):
     assert cenv.kernel.launches == 1
     if states == "contact":
         assert loaded.any(1).mean() >= 0.5
+
+
+# the registered scenes of the WidowX, the two Pandas, the clutter and the
+# sphere-in-a-bin task, with the pair function their contact states load
+_NEW_K2 = {"PutEggplantInBasketScene-v1": "capsule_hull", "PutSpoonOnTableClothInScene-v1":
+           "capsule_hull", "StackGreenCubeOnYellowCubeBakedTexInScene-v1": "box_box",
+           "PutCarrotOnPlateInScene-v1": "hull_hull", "TwoRobotPushCube-v1": "box_box_corners",
+           "TwoRobotPickCube-v1": "box_box_corners", "TwoRobotStackCube-v1": "box_box",
+           "TwoRobotFold-v1": "box_box_corners", "PlaceSphere-v1": "sphere_box",
+           "PickCubeYCB-v1": "hull_hull"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", list(_NEW_K2))
+@pytest.mark.parametrize("states", ["reset", "contact"])
+def test_bridge_and_two_robot_kernel_matches_plain(task, states):
+    """The bridge twins' and the two-robot family's scenes through the CUDA
+    kernel against the plain step on the card, K=37, one control step (20
+    sim steps on the bridge scenes): from reset states with the targets
+    moved, every env where no point carries force within the step within
+    the tolerances, the rest refereed one by one by a float64 plain step
+    (``per_env``: hull and stacked contacts are ill-conditioned in
+    float32); from ``contact_state`` states under their own command, every
+    env refereed so, and the scene's contact pair function (``_NEW_K2``:
+    the WidowX's capsule on the eggplant and the spoon, the carrot on the
+    plate, the stacked cubes and distractors, the two arms' fingers) loaded
+    in half the envs or more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cenv = mtt.make(task, num_envs=37, reward_mode="dense", device="cuda")
+    cenv.reset(seed=0)
+    st, n = cenv._state, cenv.sim_steps_per_control
+    cmd = st.cmd.replace(target_qpos=st.cmd.target_qpos + 0.05)
+    strict = False
+    if states == "contact":
+        st = cenv.contact_state(st, torch.Generator(device="cuda").manual_seed(0))
+        cmd = st.cmd
+    else:
+        strict = ~touched_in_step(cenv.kernel, st.sim, cmd, n)
+    loaded = _kernel_vs_plain(cenv.kernel, st.sim, cmd, n, strict, 37, per_env=True)
+    assert cenv.kernel.launches == 1
+    if states == "contact":
+        plan = cenv.kernel.plan
+        pts = plan.pfn == megakernel._FNS.index(_NEW_K2[task])
+        if task == "TwoRobotFold-v1":
+            pts &= (plan.pra >= 0) & (plan.prb >= 0)
+        assert loaded[:, pts].any(1).mean() >= 0.5
