@@ -29,11 +29,13 @@ for every batch of a model it supports, through ``KernelStep``: the kernel
 computes the step, and derivatives (forward or reverse mode) come from the
 plain PyTorch step, as the JAX ``custom_jvp`` seam does
 (``envs/base_env.py:495-513``). CPU tensors take the plain step directly;
-``sim_backend="torch"`` asks for the plain step everywhere. A model the
-kernel's ``supports`` refuses runs on the plain step, as the JAX package
-runs it on its XLA engine; ``kernel_refusal`` names the cap it breaks
-(``megakernel.refusal``). A kernel that fails to build or launch raises:
-it never hands its batch to the plain step.
+``sim_backend="torch"`` asks for the plain step everywhere. On CUDA a
+model the kernel's ``supports`` refuses raises, unless its task declares
+that refusal as its route (``PLAIN_STEP_REFUSAL``: TwoRobotPickCubeYCB-v1,
+n_all 36 > NALL_MAX 32), and then runs on the plain step, as the JAX
+package runs it on its XLA engine; ``kernel_refusal`` names the cap it
+breaks (``megakernel.refusal``). A kernel that fails to build or launch
+raises: it never hands its batch to the plain step.
 """
 from __future__ import annotations
 
@@ -144,6 +146,10 @@ class BaseEnv:
     # ``chip_smoke.py`` and ``mppi_ab`` run it: the bench shape unless the
     # task has a planner config of its own
     MPPI_CONFIG = dict(horizon=50, num_samples=4096, sigma=0.6, temperature=0.3)
+    # the mega-kernel's refusal of this task's scene (``megakernel.refusal``)
+    # where the task runs on the plain step by design, as the JAX package
+    # runs it on its XLA engine; any other refusal raises on CUDA
+    PLAIN_STEP_REFUSAL: Optional[str] = None
     max_episode_steps: Optional[int] = None
 
     def __init__(self, num_envs: int = 1, obs_mode: str = "state",
@@ -259,11 +265,18 @@ class BaseEnv:
     # -- functional core (batched) -----------------------------------------
     def _build_physics_dispatch(self):
         """``(sim, cmd) -> sim`` advancing one control step: the kernel
-        where ``supports`` takes the model, else the plain step (the JAX
-        package's XLA engine), the reason kept in ``kernel_refusal``."""
+        where ``supports`` takes the model, else the plain step, the reason
+        kept in ``kernel_refusal``. On CUDA a refusal raises unless it is
+        the task's declared ``PLAIN_STEP_REFUSAL``."""
         n_steps = self.sim_steps_per_control
         if self.sim_backend == "auto":
             self.kernel_refusal = megakernel.refusal(self.model)
+            if (self.kernel_refusal is not None and self.device.type == "cuda"
+                    and self.kernel_refusal != self.PLAIN_STEP_REFUSAL):
+                raise NotImplementedError(
+                    f"the CUDA mega-kernel does not support this model "
+                    f"({self.kernel_refusal}); pass sim_backend='torch' to run the "
+                    f"plain PyTorch step")
         if self.sim_backend == "torch" or self.kernel_refusal is not None:
             step = make_step_fn(self.model)
             return lambda sim, cmd: step(sim, cmd, n_steps)

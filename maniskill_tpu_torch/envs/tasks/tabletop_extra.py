@@ -246,35 +246,42 @@ class PlaceSphereEnv(BaseEnv):
 
     def contact_state(self, state: EnvState, gen: torch.Generator) -> EnvState:
         """``state`` moved into contact, for checks of the physics step: in
-        three envs of four the fingers grasp the sphere on the table
-        (``grasp_qpos``, closed 0-1 mm into it), in the fourth the sphere
-        rests in the bin, 0-1 mm into its bottom. Joint velocities are
-        random, the arm holds its pose and the gripper shuts; one control
-        step of the plain physics step loads the warm-start impulses.
-        Fingers, table and bin bottom against the sphere are ``sphere_box``
-        points."""
+        the fourth env of four the sphere is set on the bin's bottom at its
+        centre (zero depth), and two control steps of the plain physics
+        step, the arm holding its pose, let it settle there (set into the
+        bottom instead, the split impulse's position pass throws it off in
+        most envs); in the other three the fingers then grasp the sphere on
+        the table (``grasp_qpos``, closed 0-1 mm into it). Joint velocities
+        are random, the arm holds its pose and the gripper shuts; one
+        control step of the plain physics step loads the warm-start
+        impulses. Fingers, table and bin bottom against the sphere are
+        ``sphere_box`` points."""
         dev, sim = self.device, state.sim
         K = sim.qpos.shape[0]
+        step = make_step_fn(self.model)
         free_pose = sim.free_pose.clone()
         in_bin = torch.arange(K, device=dev) % 4 == 3
-        sink = self._uniform(gen, (K,), 0.0, 1e-3)
         binned = torch.cat([free_pose[:, self.bin, :2],
-                            (free_pose[:, self.bin, 2] + 2 * self.wall + self.radius
-                             - sink)[:, None], free_pose[:, self.sphere, 3:]], -1)
+                            (free_pose[:, self.bin, 2] + 2 * self.wall + self.radius)[:, None],
+                            free_pose[:, self.sphere, 3:]], -1)
         free_pose[:, self.sphere] = torch.where(in_bin[:, None], binned,
                                                 free_pose[:, self.sphere])
-        qpos = grasp_qpos(self, sim.qpos, free_pose[:, self.sphere], gen,
+        sim = sim.replace(free_pose=free_pose, qvel=torch.zeros_like(sim.qvel),
+                          free_vel=torch.zeros_like(sim.free_vel))
+        hold = self.agent.controller.reset(sim.qpos)
+        for _ in range(2):
+            sim = step(sim, hold, self.sim_steps_per_control)
+        qpos = grasp_qpos(self, sim.qpos, sim.free_pose[:, self.sphere], gen,
                           dz=torch.zeros(K, device=dev))
         r = self.radius
         qpos[:, 7:9] = self._uniform(gen, (K, 1), r - 0.001, r)
         qpos = torch.where(in_bin[:, None], sim.qpos, qpos)
         qvel = 0.1 * torch.randn(qpos.shape, generator=gen, device=dev)
-        sim = sim.replace(qpos=qpos, qvel=qvel, free_pose=free_pose,
-                          free_vel=torch.zeros_like(sim.free_vel))
+        sim = sim.replace(qpos=qpos, qvel=qvel)
         target = qpos.clone()
         target[:, 7:9] = 0.0
         cmd = self.agent.controller.reset(qpos).replace(target_qpos=target)
-        sim = make_step_fn(self.model)(sim, cmd, self.sim_steps_per_control)
+        sim = step(sim, cmd, self.sim_steps_per_control)
         return state.replace(sim=sim, cmd=cmd)
 
     def evaluate(self, state: EnvState, ctx: TaskContext):

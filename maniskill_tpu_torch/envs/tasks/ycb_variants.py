@@ -19,8 +19,8 @@ Port of ``maniskill_tpu/envs/tasks/ycb_variants.py``:
   cube and the goal).
 - ``TwoRobotPickCubeYCB-v1`` (``:256-266``): the two-robot handover with
   the same clutter: n_all 36 exceeds the mega-kernel's ``NALL_MAX`` of 32,
-  so it runs on the plain step (``megakernel.refusal``), as the JAX package
-  runs it on its XLA engine.
+  so it declares that refusal (``PLAIN_STEP_REFUSAL``) and runs on the
+  plain step, as the JAX package runs it on its XLA engine.
 - ``TwoRobotFold-v1`` (``:269-304``): FoldSuitcase worked by two Pandas;
   the same success, the lid's close fraction as its dense reward.
 
@@ -174,6 +174,8 @@ class PickCubeYCBEnv(PickCubeEnv):
 @register_env("TwoRobotPickCubeYCB-v1", max_episode_steps=100)
 class TwoRobotPickCubeYCBEnv(TwoRobotPickCubeEnv):
     """The two-robot handover amid clutter."""
+
+    PLAIN_STEP_REFUSAL = "n_all 36 > NALL_MAX 32"
 
     def _load_scene(self, builder: SceneSpecBuilder):
         super()._load_scene(builder)

@@ -43,7 +43,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import box_geom, tree_map
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import (fast_trace_metadata, jax_programs, make_jax_env, np_tree as _np,
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -88,7 +88,7 @@ def _jax(task):
     ``reset_out``) and its env step, vmapped and jitted."""
     env = _jax_env(task)
     env.reset_out = env.reset(seed=0)
-    return env, env._jit_step
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,11 +219,13 @@ def _check_reset(task):
         np.testing.assert_allclose(info[key].numpy(), np.asarray(info_j[key]), atol=1e-5,
                                    err_msg=key)
 
-    # the dense reward at the reset state (it reads no action): the JAX
-    # env's evaluate, obs and reward program, shared with its step
-    # (torch_parity.jax_programs)
-    rew_j = jax_programs(jenv)["observe"](
-        jenv._state, jenv._state, jnp.zeros((K, jenv.action_dim)))[1]
+    def reward(state):
+        from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
+
+        c = JTaskContext(jenv, state)
+        return jenv.compute_dense_reward(state, None, jenv.evaluate(state, c), c)
+
+    rew_j = jax.jit(jax.vmap(reward))(jenv._state)
     rew_t = tenv.compute_dense_reward(st, None, info, ctx)
     np.testing.assert_allclose(rew_t.numpy(), np.asarray(rew_j), atol=1e-4)
 

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.kinematics.mjcf import load_mjcf as jload_mjcf
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.planners.mppi import MPPI as JMPPI, MPPIConfig as JMPPIConfig
@@ -49,8 +50,8 @@ from maniskill_tpu_torch.kinematics.mjcf import load_mjcf
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import (fast_trace_metadata, jax_programs, make_jax_env, plain64,
-                         refereed, np_tree as _np, to_jax as _to_jax)
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, plain64, refereed,
+                         np_tree as _np, to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -106,25 +107,30 @@ def _jax_env(task):
 @functools.lru_cache(maxsize=None)
 def _jax_advance(robot):
     """The JAX controller and physics step of one control step (the first
-    half of ``BaseEnv._step_one``, ``torch_parity.jax_programs``), once a
-    robot."""
+    half of ``BaseEnv._step_one``), vmapped and jitted once a robot."""
     env = _jax_env(next(t for t, v in TASKS.items() if v[0] == robot))
 
-    return jax_programs(env)["advance"]
+    def advance(state, action):
+        cmd = env.agent.controller.set_action(state.cmd, state.sim.qpos, action)
+        sim = env._physics_step(state.sim, cmd, env.sim_steps_per_control)
+        return state.replace(sim=sim, cmd=cmd, elapsed_steps=state.elapsed_steps + 1)
+
+    return shared_jit(jax.vmap(advance))
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_post(task):
     """The rest of the task's JAX ``_step_one`` on an advanced state:
     ``(obs, reward, info)``."""
-    programs = jax_programs(_jax_env(task))
+    env = _jax_env(task)
 
     def post(state, action):
-        obs, reward, _terminated, info = programs["observe"](
-            state, programs["extras"](state), action)
-        return obs, reward, info
+        ctx = JTaskContext(env, state)
+        state = env._update_extras(state, ctx)
+        info = env.evaluate(state, ctx)
+        return env._get_obs(state, ctx, info), env._get_reward(state, action, info, ctx), info
 
-    return post
+    return shared_jit(jax.vmap(post))
 
 
 @functools.lru_cache(maxsize=None)

@@ -42,6 +42,7 @@ import torch
 
 from maniskill_tpu.agents.robots.trifinger import TriFingerPro as JTriFinger
 from maniskill_tpu.agents.robots.xarm import DClaw as JDClaw
+from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.kinematics import chain as jchain
 from maniskill_tpu.math.rotations import random_quaternion as j_random_quaternion
 from maniskill_tpu.physics import engine as jeng
@@ -55,8 +56,8 @@ from maniskill_tpu_torch.kinematics import chain
 from maniskill_tpu_torch.math import rotations
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
-from torch_parity import (fast_trace_metadata, jax_programs, make_jax_env, np_tree, plain64,
-                          refereed, to_jax)
+from torch_parity import (fast_trace_metadata, make_jax_env, np_tree, plain64, refereed,
+                          shared_jit, to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -109,31 +110,38 @@ def _jax(task):
 @functools.lru_cache(maxsize=None)
 def _jax_advance(task):
     """The JAX controller and physics step of one control step (the first
-    half of ``BaseEnv._step_one``, ``torch_parity.jax_programs``)."""
+    half of ``BaseEnv._step_one``), vmapped and jitted."""
     env = _jax(task)
 
-    return jax_programs(env)["advance"]
+    def advance(state, action):
+        cmd = env.agent.controller.set_action(state.cmd, state.sim.qpos, action)
+        sim = env._physics_step(state.sim, cmd, env.sim_steps_per_control)
+        return state.replace(sim=sim, cmd=cmd, elapsed_steps=state.elapsed_steps + 1)
+
+    return shared_jit(jax.vmap(advance))
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_extras(task):
     """The JAX task's ``_update_extras`` on an advanced state: the new
     extras."""
-    extras = jax_programs(_jax(task))["extras"]
-    return lambda state: extras(state).extras
+    env = _jax(task)
+    return shared_jit(jax.vmap(lambda state: env._update_extras(
+        state, JTaskContext(env, state)).extras))
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_post(task):
     """The rest of the JAX ``_step_one`` on an advanced state whose extras
     are updated: ``(obs, reward, info)``."""
-    observe = jax_programs(_jax(task))["observe"]
+    env = _jax(task)
 
     def post(state, action):
-        obs, reward, _terminated, info = observe(state, state, action)
-        return obs, reward, info
+        ctx = JTaskContext(env, state)
+        info = env.evaluate(state, ctx)
+        return env._get_obs(state, ctx, info), env._get_reward(state, action, info, ctx), info
 
-    return post
+    return shared_jit(jax.vmap(post))
 
 
 @functools.lru_cache(maxsize=None)

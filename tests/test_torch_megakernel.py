@@ -1065,10 +1065,12 @@ def test_every_ported_scene_fits_the_kernel(task):
         e = mtt.make(task, num_envs=1, device="cpu")
         model = e.model
         if task in _REFUSED:
-            assert megakernel.refusal(model) == e.kernel_refusal == _REFUSED[task]
+            assert (megakernel.refusal(model) == e.kernel_refusal == e.PLAIN_STEP_REFUSAL
+                    == _REFUSED[task])
             assert not megakernel.supports(model) and e.kernel is None
             return
         assert isinstance(e.kernel, megakernel.MegaKernel) and e.kernel_refusal is None
+        assert e.PLAIN_STEP_REFUSAL is None
     caps = megakernel._caps()
     plan = megakernel._Plan(model)
     assert megakernel.supports(model)
@@ -1102,6 +1104,28 @@ def test_refusal_names_the_cap_a_scene_breaks(env, monkeypatch, cap, name):
     monkeypatch.setattr(megakernel, "_caps", lambda: caps)
     assert megakernel.refusal(env.model) == f"{name} {value} > {cap} {value - 1}"
     assert not megakernel.supports(env.model)
+
+
+def test_dispatch_raises_on_an_undeclared_refusal(env, monkeypatch):
+    """On CUDA the physics dispatch raises for a model the kernel refuses
+    unless the task declares that very refusal (``PLAIN_STEP_REFUSAL``);
+    then it takes the plain step. On the CPU a refusal takes the plain step.
+    (The dispatch is built with the env's device set to CUDA: nothing is
+    launched, so no card is needed.)"""
+    monkeypatch.setattr(megakernel, "refusal", lambda model: "n_all 36 > NALL_MAX 32")
+    monkeypatch.setattr(env, "kernel", None)
+    monkeypatch.setattr(env, "kernel_refusal", None)
+    env._build_physics_dispatch()
+    assert env.kernel is None and env.kernel_refusal == "n_all 36 > NALL_MAX 32"
+    monkeypatch.setattr(env, "device", torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="n_all 36 > NALL_MAX 32"):
+        env._build_physics_dispatch()
+    monkeypatch.setattr(env, "PLAIN_STEP_REFUSAL", "n_all 36 > NALL_MAX 32")
+    env._build_physics_dispatch()
+    assert env.kernel is None
+    monkeypatch.setattr(megakernel, "refusal", lambda model: "G 33 > G_MAX 32")
+    with pytest.raises(NotImplementedError, match="G 33 > G_MAX 32"):
+        env._build_physics_dispatch()
 
 
 def _reset_vs_plain(kern, sim, cmd, K_):

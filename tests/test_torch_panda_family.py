@@ -38,7 +38,7 @@ from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.shapes import GeomType
-from torch_parity import (fast_trace_metadata, jax_env, np_tree as _np,
+from torch_parity import (fast_trace_metadata, jax_env, shared_jit, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -175,9 +175,8 @@ def _check_reset(task):
 
 @functools.lru_cache(maxsize=None)
 def _jstep(task):
-    """The task's JAX env step on a batch (``torch_parity.jax_programs``),
-    its programs compiled once among the workers."""
-    return _jax(task)._jit_step
+    """The task's JAX env step, vmapped, compiled once among the workers."""
+    return shared_jit(jax.vmap(_jax(task)._step_one))
 
 
 def _check_step(task):

@@ -26,7 +26,7 @@ from maniskill_tpu_torch.math import clamps
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import fast_trace_metadata, jax_programs, make_jax_env, np_tree as _np
+from torch_parity import fast_trace_metadata, make_jax_env, np_tree as _np
 
 # one intra-op thread per process: the suite runs several pytest workers on
 # the cores, and torch's own thread pool on top of them thrashes small ops
@@ -61,10 +61,10 @@ def tenv():
 @pytest.fixture(scope="module")
 def jstep(jenv):
     """The JAX XLA engine, one sim step with aux per call, vmapped and
-    jitted once for the module (the env's own step calls the same program,
-    ``torch_parity.jax_programs``): one sim step per call keeps the compile
+    jitted once for the module: one sim step per call keeps the compile
     small, and with a constant command 5 calls are one control step."""
-    return jax_programs(jenv)["physics"]
+    step = jeng.make_step_fn(jenv.model)
+    return jax.jit(jax.vmap(lambda s, c: step(s, c, 1, True)))
 
 
 def _assert_sim_close(sim_t, sim_j):
@@ -172,7 +172,7 @@ def test_env_step_outputs_match(jenv, tenv):
     obs), dense reward, success and the grasp flag."""
     rng = np.random.default_rng(0)
     action = rng.uniform(-1, 1, (K, jenv.action_dim)).astype(np.float32)
-    st_j, obs_j, rew_j, _term, info_j = jenv._jit_step(
+    st_j, obs_j, rew_j, _term, info_j = jax.jit(jax.vmap(jenv._step_one))(
         jenv._state, jnp.asarray(action))
     st_t = convert.env_state_from_numpy(_np(jenv._state))
     st_t, obs_t, rew_t, _term_t, info_t = tenv._step(st_t, torch.as_tensor(action))

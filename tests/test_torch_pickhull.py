@@ -45,7 +45,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import hulls, megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
 from maniskill_tpu_torch.utils import building
-from torch_parity import (fast_trace_metadata, jax_step64, make_jax_env,
+from torch_parity import (fast_trace_metadata, jax_step64, shared_jit, make_jax_env,
                          np_tree as _np, to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -243,9 +243,9 @@ def test_reset_state_evaluate_obs_and_extras(jenv, tenv):
 
 @pytest.fixture(scope="module")
 def jstep(jenv):
-    """The JAX env step (physics, evaluate, obs, reward) on a batch,
-    ``torch_parity.jax_programs``."""
-    return jenv._jit_step
+    """The JAX env step (physics, evaluate, obs, reward), vmapped and
+    jitted once for the module."""
+    return shared_jit(jax.vmap(jenv._step_one))
 
 
 @pytest.mark.parametrize("states", ["reset", "contact"])

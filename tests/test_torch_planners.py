@@ -9,10 +9,9 @@ different random numbers, so the JAX CEM noise is replayed into the port.
 iLQR is compared in three ways:
 - the whole algorithm (rollouts, linearization, Riccati pass, line search,
   regularization schedule) on the same linear system;
-- the linearization of one StackCube step: ``jax.jvp`` of the JAX
+- the linearization of one StackCube step: one ``jax.jvp`` of the JAX
   ``dyn``/``cost`` (``maniskill_tpu/planners/ilqr.py:77-87``, written out
-  here since they are closures, as a chain of the controller's, five one
-  sim step's and the cost's JVPs) along two seeded directions, against the
+  here since they are closures) along two seeded directions, against the
   port's batched forward-mode pass along the same directions;
 - the full-Jacobian comparison and a StackCube solve under the ``slow``
   marker.
@@ -31,7 +30,6 @@ import numpy as np
 import pytest
 import torch
 
-from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.planners.cem import CEM as JCEM, CEMConfig as JCEMConfig
 from maniskill_tpu.planners.ilqr import ILQR as JILQR, ILQRConfig as JILQRConfig
 
@@ -92,39 +90,18 @@ def test_ilqr_linearization_matches_jax_jvp(jenv, tenv):
                                     convert.to_numpy(st_t.cmd).items() if v is not None}))
     nq, F = 9, 2
 
-    # dyn_cost(x, u) = post(physics^5(control(x, u)), u): the JAX
-    # ``_rollout_step`` (``maniskill_tpu/envs/base_env.py:550-567``) from the
-    # reduced state, in three pieces whose tangents chain (the JVP of a
-    # composition is the composition of the JVPs): the controller, one sim
-    # step of the XLA engine applied ``sim_steps_per_control`` times, and
-    # the bookkeeping, evaluate and cost. XLA compiles the JVP of a scan of
-    # 5 sim steps about 4x longer than that of one sim step on the CPU.
-    def control(x, u):
+    def dyn_cost(x, u):
         sim = template.sim.replace(qpos=x[:nq], qvel=x[nq:2 * nq],
                                    free_pose=x[2 * nq:2 * nq + 7 * F].reshape(F, 7),
                                    free_vel=x[2 * nq + 7 * F:].reshape(F, 6))
-        return sim, jenv.agent.controller.set_action(template.cmd, sim.qpos, u)
-
-    def post(sim, cmd, u):
-        st2 = template.replace(sim=sim, cmd=cmd, elapsed_steps=template.elapsed_steps + 1)
-        ctx = JTaskContext(jenv, st2)
-        st2 = jenv._update_extras(st2, ctx)
-        reward = jenv._get_reward(st2, u, jenv.evaluate(st2, ctx), ctx)
+        st2, reward, _ = jenv._rollout_step(template.replace(sim=sim), u)
         y = jnp.concatenate([st2.sim.qpos, st2.sim.qvel, st2.sim.free_pose.reshape(-1),
                              st2.sim.free_vel.reshape(-1)])
         return y, -reward + 1e-3 * jnp.sum(u * u)
 
-    j_control = jax.jit(lambda x, u, dx, du: jax.jvp(control, (x, u), (dx, du)))
-    j_physics = jax.jit(lambda s, c, ds, dc: jax.jvp(
-        lambda s, c: jenv._physics_step(s, c, 1), (s, c), (ds, dc)))
-    j_post = jax.jit(lambda s, c, u, ds, dc, du: jax.jvp(post, (s, c, u), (ds, dc, du))[1])
-
-    def jt(dx, du):
-        (sim, cmd), (dsim, dcmd) = j_control(jnp.asarray(x0), jnp.asarray(u0), dx, du)
-        for _ in range(jenv.sim_steps_per_control):
-            sim, dsim = j_physics(sim, cmd, dsim, dcmd)
-        return j_post(sim, cmd, jnp.asarray(u0), dsim, dcmd, du)
-
+    # one direction per call: the unbatched program compiles faster than
+    # the vmapped one
+    jt = jax.jit(lambda dx, du: jax.jvp(dyn_cost, (x0, u0), (dx, du))[1])
     outs = [jt(jnp.asarray(dx), jnp.asarray(du)) for dx, du in zip(dxs, dus)]
     dy_j, dc_j = (np.stack([np.asarray(o[i]) for o in outs]) for i in range(2))
     rep = tree_map(lambda v: v.repeat_interleave(2, dim=0), st_t)

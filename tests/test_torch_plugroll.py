@@ -37,7 +37,7 @@ from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
 from maniskill_tpu_torch.planners.mppi import MPPI, MPPIConfig
-from torch_parity import (fast_trace_metadata, make_jax_env, np_tree as _np,
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -72,7 +72,7 @@ def _jax(task):
     process, shared by every test that needs them."""
     env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
-    return env, env._jit_step
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)

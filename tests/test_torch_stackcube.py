@@ -27,7 +27,7 @@ from maniskill_tpu_torch import convert
 from maniskill_tpu_torch.envs.base_env import TaskContext
 from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel, shapes
-from torch_parity import (fast_trace_metadata, make_jax_env, np_tree as _np,
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -62,9 +62,9 @@ def tenv():
 
 @pytest.fixture(scope="module")
 def jstep(jenv):
-    """The JAX env step (physics, evaluate, obs, reward) on a batch,
-    ``torch_parity.jax_programs``."""
-    return jenv._jit_step
+    """The JAX env step (physics, evaluate, obs, reward), vmapped and
+    jitted once for the module."""
+    return shared_jit(jax.vmap(jenv._step_one))
 
 
 def _random_box_poses(rng, n):

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from maniskill_tpu.envs.base_env import TaskContext as JTaskContext
 from maniskill_tpu.physics import engine as jeng
 from maniskill_tpu.planners import mpc as jmpc
 from maniskill_tpu.planners.mppi import MPPI as JMPPI, MPPIConfig as JMPPIConfig
@@ -41,7 +42,7 @@ from maniskill_tpu_torch.physics import engine as teng
 from maniskill_tpu_torch.physics import megakernel
 from maniskill_tpu_torch.physics.model import tree_map
 from maniskill_tpu_torch.planners import MPPI, MPPIConfig, run_episode, run_episode_device, solve_task
-from torch_parity import (fast_trace_metadata, jax_programs, make_jax_env, np_tree as _np,
+from torch_parity import (fast_trace_metadata, shared_jit, make_jax_env, np_tree as _np,
                          to_jax as _to_jax)
 
 # one intra-op thread per process: the suite runs several pytest workers on
@@ -83,7 +84,7 @@ def _jax(task):
     ``reset_out``) and its env step, vmapped and jitted."""
     env = make_jax_env(task, num_envs=K, reward_mode="dense", sim_backend="xla")
     env.reset_out = env.reset(seed=0)
-    return env, env._jit_step
+    return env, shared_jit(jax.vmap(env._step_one))
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,9 +144,11 @@ def _check_reset(task):
                                    err_msg=key)
     action = np.zeros((K, 8), np.float32)
 
-    # the dense reward at the reset state: the JAX env's evaluate, obs and
-    # reward program, shared with its step (torch_parity.jax_programs)
-    rew_j = jax_programs(jenv)["observe"](jenv._state, jenv._state, jnp.zeros((K, 8)))[1]
+    def reward_one(s):
+        ctx_j = JTaskContext(jenv, s)
+        return jenv.compute_dense_reward(s, jnp.zeros(8), jenv.evaluate(s, ctx_j), ctx_j)
+
+    rew_j = jax.jit(jax.vmap(reward_one))(jenv._state)
     rew = tenv.compute_dense_reward(st, torch.as_tensor(action), info, ctx)
     np.testing.assert_allclose(rew.numpy(), np.asarray(rew_j), atol=1e-4)
 

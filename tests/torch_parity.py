@@ -52,104 +52,16 @@ def fast_trace_metadata():
 
 
 def make_jax_env(task, **kwargs):
-    """``maniskill_tpu.make(task, **kwargs)`` with the env's batch step and
-    first batch reset (``_jit_step``, ``_jit_reset``) composed of programs
-    compiled once among the test processes (``jax_programs``)."""
+    """``maniskill_tpu.make(task, **kwargs)`` with the env's jitted batch
+    step and reset (``_jit_step``, ``_jit_reset``) compiled through
+    ``shared_jit``: the same programs, compiled once among the test
+    processes."""
     import maniskill_tpu as mst
 
     env = mst.make(task, **kwargs)
-    programs = jax_programs(env)
-    env._jit_reset, env._jit_step = programs["reset"], programs["step"]
+    env._jit_step = shared_jit(jax.vmap(env._step_one))
+    env._jit_reset = shared_jit(jax.vmap(lambda k: env._reset_one(k)))
     return env
-
-
-def jax_programs(env):
-    """The JAX env's batch reset (``jax.vmap(env._reset_one)``) and batch
-    step (``jax.vmap(env._step_one)``), composed of the same functions in
-    the same order (``maniskill_tpu/envs/base_env.py:401-425``,
-    ``:522-548``), each piece compiled once through ``shared_jit``: the
-    initial state and episode draws; the controller's command (the action's
-    NaNs zeroed; a task-space mode given the pre-step FK); one sim step of
-    physics, called ``env.sim_steps_per_control`` times; the task's
-    bookkeeping (``_update_extras``); and evaluate, obs, reward and
-    ``terminated`` (one program that the reset and the step share, its
-    ``TaskContext`` built from the state before the bookkeeping, as in
-    ``_step_one``). XLA compiles a scan of n sim steps about three times
-    longer than one sim step on the CPU (PickCube-v1 8.1 s against 2.8 s,
-    TwoRobotStackCube-v1 20.8 s against 8.1 s), and a reset program of its
-    own would compile evaluate and obs a second time. Returns a dict
-    (kept on the env) of ``reset(keys) -> (state, obs, info)``,
-    ``step(state, action) -> (state, obs, reward, terminated, info)``, and
-    its pieces ``advance(state, action) -> state`` (the step's first half),
-    ``physics(sim, cmd) -> (sim, aux)`` (one sim step, with the engine's
-    aux outputs), ``extras(state) -> state`` and ``observe(ctx_state,
-    state, action) -> (obs, reward, terminated, info)``."""
-    cached = env.__dict__.get("_parity_programs")
-    if cached is not None:
-        return cached
-    import jax.numpy as jnp
-    from maniskill_tpu.envs.base_env import EnvState, TaskContext
-    from maniskill_tpu.physics.model import DriveCmd
-
-    nq = env.model.nq
-
-    def init(key):
-        k_init, k_ep, k_next = jax.random.split(key, 3)
-        sim = env._initial_sim_state(k_init)
-        state = EnvState(sim=sim, cmd=DriveCmd(target_qpos=sim.qpos, target_qvel=jnp.zeros(nq),
-                                               qf=jnp.zeros(nq)),
-                         elapsed_steps=jnp.zeros((), jnp.int32), rng=k_next,
-                         extras=env._default_extras())
-        state = env._initialize_episode(state, k_ep)
-        return state.replace(cmd=env.agent.controller.reset(state.sim.qpos))
-
-    def control(state, action):
-        action = jnp.nan_to_num(jnp.asarray(action, jnp.float32))
-        aux = None
-        if env.agent.controller.needs_fk_aux:
-            ctx0 = TaskContext(env, state)
-            aux = (jnp.asarray(env.model.robot_base_pose), ctx0.body_pos, ctx0.body_quat,
-                   ctx0.axis_w)
-        return env.agent.controller.set_action(state.cmd, state.sim.qpos, action, aux=aux), action
-
-    def observe(ctx_state, state, action):
-        ctx = TaskContext(env, ctx_state)
-        info = env.evaluate(state, ctx)
-        obs = env._get_obs(state, ctx, info)
-        reward = env._get_reward(state, action, info, ctx)
-        terminated = info.get("success", jnp.zeros((), bool))
-        if "fail" in info:
-            terminated = terminated | info["fail"]
-        return obs, reward, terminated, info
-
-    init_b = shared_jit(jax.vmap(init))
-    control_b = shared_jit(jax.vmap(control))
-    physics_b = shared_jit(jax.vmap(lambda sim, cmd: env._physics_step(sim, cmd, 1, True)))
-    extras_b = shared_jit(jax.vmap(lambda state: env._update_extras(state, TaskContext(env, state))))
-    observe_b = shared_jit(jax.vmap(observe))
-
-    def reset(keys):
-        state = init_b(keys)
-        obs, _reward, _terminated, info = observe_b(
-            state, state, jnp.zeros((len(keys), env.action_dim), jnp.float32))
-        return state, obs, info
-
-    def advance(state, action, with_action=False):
-        cmd, action = control_b(state, action)
-        sim = state.sim
-        for _ in range(env.sim_steps_per_control):
-            sim = physics_b(sim, cmd)[0]
-        state = state.replace(sim=sim, cmd=cmd, elapsed_steps=state.elapsed_steps + 1)
-        return (state, action) if with_action else state
-
-    def step(state, action):
-        state, action = advance(state, action, with_action=True)
-        new = extras_b(state)
-        return (new,) + observe_b(state, new, action)
-
-    env._parity_programs = dict(reset=reset, step=step, advance=advance, physics=physics_b,
-                                extras=extras_b, observe=observe_b)
-    return env._parity_programs
 
 
 @functools.lru_cache(maxsize=None)
